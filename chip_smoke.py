@@ -6,8 +6,11 @@
 Builds the port's CUDA kernels from ops/csrc with nvcc, holds every
 kernel against its plain PyTorch version on the card, runs the seeded
 end-to-end scenarios against the CPU float64 path and the scipy oracle,
-and drives the port's main path (`run_scenario_core`) once at a size
-users run: 256 multi_obstacle scenarios with 1000 samples per obstacle.
+and drives the port's paths once each at a size users run: the scenario
+pipeline (`run_scenario_core`, 256 multi_obstacle scenarios with 1000
+samples per obstacle), the kernel benchmark (`experiments.kbench`,
+32768 rows of 1000 samples), the Monte Carlo study (`cli --mode
+monte_carlo --mc_runs 300`) and the timing sweep at the JAX defaults.
 It imports torch, numpy, scipy, the port and the numpy-only helpers in
 tests/ -- never jax.
 
@@ -15,9 +18,13 @@ Phases (each prints its lines; any failed gate raises and the exit code
 is non-zero):
   1. device: nvidia-smi name and power limit, versions, TF32 flags;
   2. build: the kernels' nvcc build;
-  3. kernels against their plain versions at the main path's shapes;
+  3. kernels against their plain versions at the paths' shapes, then
+     the kernel benchmark's attribution lines (launch counts from 0);
   4. seeded end to end: the reference's seed-42 streams (N = 20);
-  5. the batch run, with its launch counts, checks and wall time.
+  5. the batch run, with its launch counts, checks and wall time;
+  6. the entry points: Monte Carlo (twice from one seed, launch counts
+     from 0, a CPU float64 re-run of its first runs) and the timing
+     sweep.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -28,6 +35,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,6 +50,9 @@ H_TOL, G_ATOL, G_RTOL, LINALG_RTOL = 1e-5, 2e-4, 1e-5, 1e-5
 ORACLE_TOL = 1e-4
 BATCH = dict(scenarios=256, n_samples=1000, sim_time=6.0, qp_iters=35,
              qp_tol=3e-5, seed=0, recheck=8)
+MC = dict(runs=300, recheck=8, tol=1e-3)
+# The JAX halfspace bench's shapes (bench.py) for the DR-CVaR solve.
+DRCVAR_SHAPES = ((32768, 1000), (8192, 4096), (1, 1000))
 
 
 class GateFailed(RuntimeError):
@@ -61,27 +72,37 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` launches (CUDA events)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def plain_vs_kernel_ms(plain, kernel, reps: int):
-    """Times in turns (plain, kernel, kernel, plain) within this call."""
+    """Times in turns (plain, kernel, kernel, plain) within this call:
+    CUDA events over `reps` launches after a warm-up (kbench's timer)."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments.kbench import (
+        cuda_ms)
+
     p1, k1, k2, p2 = (cuda_ms(f, reps) for f in (plain, kernel, kernel,
                                                  plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def check_close(names, out, ref, label, exact=False):
+    """Kernel outputs against their plain versions: normals (names
+    starting with "h") to H_TOL, offsets to G_ATOL + G_RTOL |g|, or
+    bit-equal; returns the max abs error."""
+    import torch
+
+    err = 0.0
+    for name, a, b in zip(names, out, ref):
+        gate(bool(torch.isfinite(a).all()), f"{label}: {name} not finite")
+        diff = (a - b).abs()
+        if exact:
+            gate(torch.equal(a, b), f"{label}: {name} not bit-equal")
+        elif name.startswith("h"):
+            gate(float(diff.max()) <= H_TOL,
+                 f"{label}: {name} off by {float(diff.max()):.3e}")
+        else:
+            gate(bool((diff <= G_ATOL + G_RTOL * b.abs()).all()),
+                 f"{label}: {name} off by {float(diff.max()):.3e}")
+        err = max(err, float(diff.max()))
+    return err
 
 
 def check_halfspaces(ck, samples, ego, alpha, label):
@@ -91,19 +112,12 @@ def check_halfspaces(ck, samples, ego, alpha, label):
     out = ck.all_metrics_halfspaces(samples, ego, alpha, *ARGS[1:])
     torch.cuda.synchronize()
     ref = ck.all_metrics_halfspaces_plain(samples, ego, alpha, *ARGS[1:])
-    err = 0.0
-    for name, a, b in zip(out._fields, out, ref):
-        gate(bool(torch.isfinite(a).all()), f"{label}: {name} not finite")
-        diff = (a - b).abs()
-        if name.startswith("h"):
-            gate(float(diff.max()) <= H_TOL,
-                 f"{label}: {name} off by {float(diff.max()):.3e}")
-        else:
-            bound = G_ATOL + G_RTOL * b.abs()
-            gate(bool((diff <= bound).all()),
-                 f"{label}: {name} off by {float(diff.max()):.3e}")
-        err = max(err, float(diff.max()))
-    return err
+    return check_close(out._fields, out, ref, label)
+
+
+def check_hg(out, ref, label, exact=False):
+    """(h, g) of a kernel against its plain version (see check_close)."""
+    return check_close(("h", "g"), out, ref, label, exact)
 
 
 def kernel_rows(pt, torch, statics, obstacles, ego_start, ego_goal,
@@ -227,7 +241,90 @@ def phase_kernels(pt, torch, dev, streams):
                                   *times["batched_cholesky"])
     record["batched_cho_solve"] = (errs["batched_cho_solve"],
                                    *times["batched_cho_solve_k1"])
+
+    # Kernel 4: bit-equal to kernel 1 on the batch run's rows; within
+    # kernel 1's tolerance of its plain version at the JAX bench shapes.
+    out = ck.fused_drcvar_halfspace(rows, ego, *ARGS)
+    ref = ck.all_metrics_halfspaces(rows, ego, *ARGS)
+    check_hg(out, (ref.h, ref.g_drcvar), "drcvar vs kernel 1", exact=True)
+    check_hg(out, ck.fused_drcvar_halfspace_plain(rows, ego, *ARGS),
+             "drcvar batch rows")
+    print(f"[kernels] fused_drcvar_halfspace B={rows.shape[0]} "
+          f"N={rows.shape[1]}: (h, g) bit-equal to all_metrics_halfspaces' "
+          f"(h, g_drcvar)")
+    del rows, ego, out, ref
+    kb = pt.experiments.kbench
+    err4 = 0.0
+    for B, N in DRCVAR_SHAPES:
+        x, e = kb.make_inputs(B, N, dev, seed=B)
+        err4 = max(err4, check_hg(
+            ck.fused_drcvar_halfspace(x, e, *ARGS),
+            ck.fused_drcvar_halfspace_plain(x, e, *ARGS), f"drcvar B={B}"))
+        k_ms, p_ms = plain_vs_kernel_ms(
+            lambda: ck.fused_drcvar_halfspace_plain(x, e, *ARGS),
+            lambda: ck.fused_drcvar_halfspace(x, e, *ARGS), reps=5)
+        print(f"[kernels] fused_drcvar_halfspace B={B} N={N}: {k_ms:.4f} ms "
+              f"(plain {p_ms:.4f} ms), {B * N * 8 / k_ms / 1e6:.1f} GB/s "
+              f"implied")
+        if (B, N) == DRCVAR_SHAPES[0]:
+            record["fused_drcvar_halfspace"] = (err4, k_ms, p_ms)
+        del x, e
+    record["fused_drcvar_halfspace"] = (err4,
+                                        *record["fused_drcvar_halfspace"][1:])
+
+    # Kernels 5-7 at the kernel benchmark's shape.
+    cv = pt.ops.cuda_variants
+    x, e = kb.make_inputs(kb.BATCH, kb.N_SAMPLES, dev)
+    err5 = 0.0
+    for v in cv.VARIANTS[1:]:
+        err = check_hg(cv.drcvar_variant(x, e, v),
+                       cv.drcvar_variant_plain(x, e, v), f"variant {v}")
+        err5 = max(err5, err)
+        k_ms, p_ms = plain_vs_kernel_ms(
+            lambda: cv.drcvar_variant_plain(x, e, v),
+            lambda: cv.drcvar_variant(x, e, v), reps=3)
+        print(f"[kernels] drcvar_variant {v} B={kb.BATCH} N={kb.N_SAMPLES}: "
+              f"max_abs_err {err:.3e}, {k_ms:.4f} ms (plain {p_ms:.4f} ms)")
+        if v == "r3":
+            record["drcvar_variant"] = (err, k_ms, p_ms)
+    record["drcvar_variant"] = (err5, *record["drcvar_variant"][1:])
+    err6 = check_hg(cv.minimal_planes(x, e), cv.minimal_planes_plain(x, e),
+                    "minimal_planes")
+    record["minimal_planes"] = (err6, *plain_vs_kernel_ms(
+        lambda: cv.minimal_planes_plain(x, e),
+        lambda: cv.minimal_planes(x, e), reps=5))
+    rounds = cv.select_rounds(x, e, ARGS[0])
+    rounds_ref = cv.select_rounds_plain(x, e, ARGS[0])
+    gate(torch.equal(rounds, rounds_ref), "select_rounds: differs from plain "
+         f"on {int((rounds != rounds_ref).sum())} rows")
+    record["select_rounds"] = (
+        float((rounds - rounds_ref).abs().max()), *plain_vs_kernel_ms(
+            lambda: cv.select_rounds_plain(x, e, ARGS[0]),
+            lambda: cv.select_rounds(x, e, ARGS[0]), reps=3))
+    for name in ("minimal_planes", "select_rounds"):
+        print(f"[kernels] {name} B={kb.BATCH} N={kb.N_SAMPLES}: max_abs_err "
+              f"{record[name][0]:.3e}, {record[name][1]:.4f} ms (plain "
+              f"{record[name][2]:.4f} ms)")
+    print(f"[kernels] variants within h {H_TOL}, g {G_ATOL} + {G_RTOL} rel; "
+          "select_rounds equal to its plain version on every row")
+    del x, e
     return record
+
+
+def drive_kbench(pt, torch):
+    """The kernel benchmark's path: counts from 0, every variant once
+    through `experiments.kbench.measure`; returns the launch counts."""
+    ck, cv = pt.ops.cuda_kernels, pt.ops.cuda_variants
+    kernels = (ck.fused_drcvar_halfspace, cv.drcvar_variant,
+               cv.minimal_planes, cv.select_rounds)
+    for fn in kernels:
+        fn.launches = 0
+    pt.experiments.kbench.measure(pt.experiments.kbench.NAMES)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    gate(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    print(f"[kbench] launches {launches}")
+    return launches
 
 
 def phase_e2e(pt, torch, dev, streams):
@@ -286,6 +383,73 @@ def run_batch(pt, torch, dev, params, scenario, statics):
         n_scenarios=BATCH["scenarios"])
 
 
+def phase_entry_points(pt, torch, dev, card):
+    """Monte Carlo through the CLI (twice from one seed) and the timing
+    sweep at the JAX defaults."""
+    ck, cl = pt.ops.cuda_kernels, pt.ops.cuda_linalg
+    kernels = (ck.all_metrics_halfspaces, cl.batched_cholesky,
+               cl.batched_cho_solve)
+    argv = ["--mode", "monte_carlo", "--mc_runs", str(MC["runs"]),
+            "--device", "cuda"]
+    runs, walls = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(2):
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = pt.cli.main(argv + ["--save_dir", tmp])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            gate(min(launches.values()) > 0,
+                 f"monte_carlo: a kernel never launched: {launches}")
+            runs.append(res)
+        gate((Path(tmp) / "head_on_mc_data.npz").exists(),
+             "monte_carlo: head_on_mc_data.npz not written")
+    first, second = runs
+    gate(first.min_distances.shape == (MC["runs"], 4), "monte_carlo shape")
+    gate(bool(torch.isfinite(first.min_distances).all()),
+         "monte_carlo: min distances not finite")
+    gate(torch.equal(first.min_distances, second.min_distances),
+         "monte_carlo: two runs from one seed differ")
+    # The first runs' obstacle draws again, through the CPU float64 path.
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("head_on")
+    n_re = MC["recheck"]
+    statics = pt.models.make_statics(scenario, params, torch.float32, dev)
+    obs = pt.evaluation.monte_carlo.run_obstacles(
+        statics, pt.evaluation.monte_carlo.run_seeds(42, MC["runs"])[:n_re],
+        scenario, params, int(params.sim_time / params.dt))
+    cpu = pt.models.run_scenario_with_obstacles(
+        pt.models.make_statics(scenario, params, torch.float64),
+        pt.simulation.ObstacleData(*(t.cpu().double() for t in obs)),
+        scenario.ego_start, scenario.ego_goal, params.ego_velocity)
+    md_cpu, _ = pt.evaluation.monte_carlo.reduce_runs(cpu)
+    dev_md = float((first.min_distances[:n_re].cpu().double() - md_cpu)
+                   .abs().max())
+    gate(dev_md < MC["tol"], f"monte_carlo: min distances {dev_md:.3e} from "
+         "the CPU float64 run")
+    conv = float(first.qp_converged.float().mean())
+    probs = ", ".join(f"{m} {float(p):.3f}" for m, p in zip(
+        list(pt.models.METRICS) + ["reference"], first.collision_probs))
+    print(f"[mc] {MC['runs']} runs of head_on (custom, N = "
+          f"{params.num_samples}): collision probabilities {probs}")
+    print(f"[mc] converged {conv:.4f}; wall {walls[0]:.1f} ms and "
+          f"{walls[1]:.1f} ms (CLI, host clock, save included) on {card}; "
+          f"launches {launches}; the two runs' min distances are identical; "
+          f"the first {n_re} runs within {dev_md:.2e} of CPU float64")
+
+    data = pt.evaluation.analyze_dr_cvar_computation_time(
+        save_dir=None, device=dev, verbose=False)
+    for n in sorted(data["solve_times"]):
+        dr, cvar = (float(np.mean(data[k][n]))
+                    for k in ("solve_times", "cvar_solve_times"))
+        setup = float(np.mean(data["setup_times"][n]))
+        gate(np.isfinite([dr, cvar, setup]).all(), "timing: not finite")
+        print(f"[timing] N={n}: solve ms per instance dr_cvar {dr:.6f}, "
+              f"cvar {cvar:.6f}, setup {setup:.6f} (50 runs, 20 repeats)")
+
+
 def main() -> int:
     import torch
 
@@ -302,6 +466,8 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     import torch_port_streams as streams
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as pt
+    import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.cli  # noqa: F401,E501
+    import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments.kbench  # noqa: F401,E501
 
     dev = torch.device("cuda", 0)
     ck, cl = pt.ops.cuda_kernels, pt.ops.cuda_linalg
@@ -326,8 +492,10 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # 3. Kernels against their plain versions, at the main path's shapes.
+    # 3. Kernels against their plain versions, at the paths' shapes; then
+    # the kernel benchmark's path.
     record = phase_kernels(pt, torch, dev, streams)
+    kbench_launches = drive_kbench(pt, torch)
 
     # 4. Seeded end to end.
     phase_e2e(pt, torch, dev, streams)
@@ -395,6 +563,10 @@ def main() -> int:
     print(f"[batch] CPU float64 re-run of {n_re} scenarios: converged flags "
           f"agree, objectives within {obj_rel:.2e} relative")
     print(f"[batch] launches {launches}")
+    launches.update(kbench_launches)
+
+    # 6. The entry points.
+    phase_entry_points(pt, torch, dev, card)
 
     source = f"{PKG}/ops/csrc/"
     kernels = [
@@ -404,6 +576,11 @@ def main() -> int:
          f"{TPU_PKG}/ops/pallas_linalg.py:46"),
         ("batched_cho_solve", "linalg_kernels.cu",
          f"{TPU_PKG}/ops/pallas_linalg.py:71"),
+        ("fused_drcvar_halfspace", "halfspace_kernels.cu",
+         f"{TPU_PKG}/ops/pallas_kernels.py:380"),
+        ("drcvar_variant", "halfspace_variants.cu", "experiments/kbench.py:176"),
+        ("minimal_planes", "halfspace_variants.cu", "experiments/kbench.py:272"),
+        ("select_rounds", "halfspace_variants.cu", "experiments/kbench.py:388"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source + src,

@@ -7,13 +7,18 @@ and function names; plain functions on tensors with an explicit device
 and dtype.  `vmap` becomes a leading batch axis: the pipeline takes a
 batch of scenarios `[S, ...]`.
 
-The three Pallas kernels on the scenario pipeline's path are CUDA C++
-kernels for Hopper (`ops/csrc/`), built with nvcc on first use:
+Every Pallas kernel of the JAX package has a CUDA C++ counterpart for
+Hopper (`ops/csrc/`), built with nvcc on first use:
 
   * `ops/cuda_kernels.all_metrics_halfspaces`  (all three risk metrics'
     halfspaces in one pass over the samples);
+  * `ops/cuda_kernels.fused_drcvar_halfspace`  (the DR-CVaR halfspace
+    alone, the public solve);
   * `ops/cuda_linalg.batched_cholesky`;
-  * `ops/cuda_linalg.batched_cho_solve`.
+  * `ops/cuda_linalg.batched_cho_solve`;
+  * `ops/cuda_variants.drcvar_variant`, `minimal_planes` and
+    `select_rounds` (the kernel benchmark's attribution variants, run by
+    `experiments/kbench.py`).
 
 On a CPU tensor each wrapper runs its plain PyTorch version instead; on
 a CUDA tensor it launches its kernel or raises.
@@ -28,6 +33,8 @@ from . import core
 from . import ops
 from . import simulation
 from . import models
+from . import evaluation
+from . import utils
 from . import convert
 
 __version__ = "0.1.0"

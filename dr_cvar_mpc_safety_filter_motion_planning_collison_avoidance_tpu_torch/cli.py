@@ -1,20 +1,34 @@
-"""Command line of the PyTorch / CUDA port: `--mode single`.
+"""Command line of the PyTorch / CUDA port.
 
     python -m dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.cli \
         --scenario head_on --mode single [--preset paper] [--dtype float64] \
         [--device cpu|cuda] [--seed 42]
+    ... --mode monte_carlo --mc_runs 300 [--save_dir results]
+    ... --mode timing_analysis --sample_sizes 10,50,100,500,1000,1500 \
+        --timing_runs 50 [--save_dir results]
+    ... [--profile_dir DIR]   (a torch.profiler trace of the run)
 
-Runs one scenario through the port's pipeline and prints, as the JAX
-package's CLI does, each metric's solver status and IPM iterations and
-the minimum distance to collision with its verdict.  The plots and the
-other modes (monte_carlo, timing_analysis) are not ported yet.
+The modes of the JAX package's CLI:
+
+  * single: one scenario through the pipeline; prints each metric's
+    solver status and IPM iterations and the minimum distance to
+    collision with its verdict (the plots are not ported yet);
+  * monte_carlo: the collision-probability study; prints the summary and
+    saves `<scenario>_mc_data.npz` under --save_dir;
+  * timing_analysis: the DR-CVaR computation-time sweep; writes the JAX
+    package's artifacts under --save_dir.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+
+
+def _dtype(args):
+    return torch.float64 if args.dtype == "float64" else torch.float32
 
 
 def run_single(args):
@@ -22,11 +36,11 @@ def run_single(args):
 
     params = dct.config.get_parameters(args.preset)
     scenario = dct.config.get_scenario_config(args.scenario, args.preset)
-    dtype = torch.float64 if args.dtype == "float64" else torch.float32
 
     print(f"Running scenario: {scenario.description} on {args.device}")
     result = dct.models.run_single_scenario(scenario, params, seed=args.seed,
-                                            dtype=dtype, device=args.device)
+                                            dtype=_dtype(args),
+                                            device=args.device)
 
     print("\nMPC Feasibility Information:")
     for i, metric in enumerate(dct.models.METRICS):
@@ -47,6 +61,41 @@ def run_single(args):
     return result
 
 
+def run_timing(args):
+    import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as dct
+
+    params = dct.config.get_parameters(args.preset)
+    sizes = [int(n.strip()) for n in args.sample_sizes.split(",")]
+    print(f"\nRunning DR-CVaR computation time analysis on {args.device}...")
+    data = dct.evaluation.analyze_dr_cvar_computation_time(
+        sample_sizes=sizes, n_runs=args.timing_runs, save_dir=args.save_dir,
+        params=params, dtype=_dtype(args), device=args.device)
+    print(f"Timing analysis complete. Results saved to {args.save_dir}")
+    return data
+
+
+def run_monte_carlo(args):
+    import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as dct
+
+    params = dct.config.get_parameters(args.preset)
+    scenario = dct.config.get_scenario_config(args.scenario, args.preset)
+    print(f"Monte Carlo: {args.mc_runs} runs of {args.scenario} on "
+          f"{args.device} ...")
+    timer = dct.utils.Timer().start()
+    result = dct.evaluation.run_monte_carlo_simulation(
+        scenario, params, n_runs=args.mc_runs, seed=args.seed,
+        dtype=_dtype(args), device=args.device)
+    print(f"Monte Carlo (run): {timer.stop(block=result):.6f} seconds")
+    dct.evaluation.print_mc_summary(result)
+
+    npz_path = os.path.join(args.save_dir, f"{args.scenario}_mc_data.npz")
+    dct.evaluation.save_mc_result(result, npz_path)
+    print(f"Saved MC arrays to {npz_path}")
+    print("The MC comparison plot (viz.compare_risk_metrics) waits for the "
+          "port of simulation/visualization.py")
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Run DR-CVaR Safety Filtering Scenarios "
@@ -55,7 +104,13 @@ def main(argv=None):
                         choices=["head_on", "overtaking", "intersection",
                                  "multi_obstacle"],
                         default="head_on")
-    parser.add_argument("--mode", choices=["single"], default="single")
+    parser.add_argument("--mode",
+                        choices=["single", "timing_analysis", "monte_carlo"],
+                        default="single")
+    parser.add_argument("--sample_sizes", type=str,
+                        default="10,50,100,500,1000,1500")
+    parser.add_argument("--timing_runs", type=int, default=50)
+    parser.add_argument("--mc_runs", type=int, default=300)
     parser.add_argument("--preset", choices=["custom", "paper"],
                         default="custom")
     parser.add_argument("--dtype", choices=["float32", "float64"],
@@ -64,8 +119,26 @@ def main(argv=None):
     parser.add_argument("--device", choices=["cpu", "cuda"],
                         default="cuda" if torch.cuda.is_available()
                         else "cpu")
+    parser.add_argument("--save_dir", type=str, default="results")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="capture a torch.profiler trace of the run "
+                             "into this directory (Chrome trace format)")
     args = parser.parse_args(argv)
-    return run_single(args)
+
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.utils import (
+        trace)
+
+    os.makedirs(args.save_dir, exist_ok=True)
+    with trace(args.profile_dir):
+        if args.mode == "single":
+            result = run_single(args)
+        elif args.mode == "timing_analysis":
+            result = run_timing(args)
+        else:
+            result = run_monte_carlo(args)
+    if args.profile_dir:
+        print(f"Profiler trace written to {args.profile_dir}")
+    return result
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Builds the CUDA kernels of `csrc/` on first use and binds them.
 
-nvcc compiles every `csrc/*.cu` for sm_90a into one shared library with
-a plain C interface, loaded with ctypes.  The library goes to
-`build/torch_kernels/<hash of the sources and flags>/` beside the
+nvcc compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, loaded with ctypes.  The library goes to
+`build/torch_kernels/<hash of the sources, headers and flags>/` beside the
 package (git-ignored), so a checkout builds from its own sources and a
 changed source never loads a stale library.  Nothing is built or
 loaded when this module is imported.
@@ -23,7 +24,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdrcvar_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -31,6 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # would pass a Python int as a 32-bit int and cut the pointer.
 _SIGNATURES = {
     "drcvar_all_metrics_halfspaces": [_P] * 7 + [_I] * 3 + [_F] * 5 + [_P],
+    "drcvar_fused_halfspace": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P],
+    "drcvar_variant": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_P],
+    "drcvar_select_rounds": [_P] * 3 + [_I] * 3 + [_F, _P],
     "drcvar_kth_largest": [_P, _P, _I, _I, _I, _P],
     "drcvar_batched_cholesky": [_P, _P, _I, _I, _P],
     "drcvar_batched_cho_solve": [_P, _P, _P, _I, _I, _I, _P],
@@ -60,7 +64,7 @@ def load() -> KernelLibrary:
     """Build (if needed) and load the kernel library."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
@@ -69,17 +73,9 @@ def load() -> KernelLibrary:
     seconds = 0.0
     if not so_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
+        log_path.write_text(_compile_and_link(sources, out_dir, so_path))
         seconds = time.perf_counter() - t0
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{proc.stderr[-6000:]}")
-        os.replace(tmp, so_path)   # atomic: a reader never sees half a file
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -89,6 +85,38 @@ def load() -> KernelLibrary:
     lib.drcvar_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib, so_path, seconds, log)
+
+
+def _compile_and_link(sources, out_dir: Path, so_path: Path) -> str:
+    """One nvcc per source, all at once, then one link; returns the log."""
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    log = ""
+    failed = []
+    for src, proc in zip(sources, procs):
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (code {proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                           f"{log[-6000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True,
+                          check=False)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed with code {link.returncode}:"
+                           f"\n{link.stderr[-6000:]}")
+    os.replace(tmp, so_path)   # atomic: a reader never sees half a file
+    for obj in objs:
+        obj.unlink()
+    return log
 
 
 def check(err: int, what: str) -> None:

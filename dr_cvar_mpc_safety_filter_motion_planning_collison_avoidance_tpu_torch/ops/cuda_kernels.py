@@ -19,7 +19,8 @@ import torch
 
 from ..core.risk import cvar_k, kth_largest as _kth_largest_plain
 from . import _build
-from .halfspace import cvar_halfspace, dr_cvar_halfspace, mean_halfspace
+from .halfspace import (Halfspace, cvar_halfspace, dr_cvar_halfspace,
+                        mean_halfspace)
 
 # One float32 of shared memory per sample (the row's projections); the
 # block's own bookkeeping takes ~1 KB of the 227 KB an H100 block may use.
@@ -62,6 +63,23 @@ def _check_f32_cuda(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _check_rows(what: str, samples, ego) -> tuple[int, int]:
+    """Validate [B, N, 2] float32 samples and [B, 2] ego on one CUDA
+    device; returns (B, N)."""
+    if samples.dim() != 3 or samples.shape[-1] != 2:
+        raise ValueError(f"samples: expected [B, N, 2], got "
+                         f"{tuple(samples.shape)}")
+    B, N, _ = samples.shape
+    if not 1 <= N <= MAX_N_SAMPLES:
+        raise ValueError(f"{what}: 1 <= N <= {MAX_N_SAMPLES} samples per "
+                         f"row, got {N}")
+    _check_f32_cuda("samples", samples, (B, N, 2))
+    _check_f32_cuda("ego", ego, (B, 2))
+    if ego.device != samples.device:
+        raise ValueError("samples and ego must be on the same device")
+    return B, N
+
+
 def all_metrics_halfspaces(samples, ego, alpha: float, delta: float,
                            epsilon: float, robot_radius: float,
                            obstacle_radius: float) -> MetricHalfspaces:
@@ -75,17 +93,7 @@ def all_metrics_halfspaces(samples, ego, alpha: float, delta: float,
         return all_metrics_halfspaces_plain(samples, ego, alpha, delta,
                                             epsilon, robot_radius,
                                             obstacle_radius)
-    if samples.dim() != 3 or samples.shape[-1] != 2:
-        raise ValueError(f"samples: expected [B, N, 2], got "
-                         f"{tuple(samples.shape)}")
-    B, N, _ = samples.shape
-    if not 1 <= N <= MAX_N_SAMPLES:
-        raise ValueError(f"all_metrics_halfspaces: 1 <= N <= "
-                         f"{MAX_N_SAMPLES} samples per row, got {N}")
-    _check_f32_cuda("samples", samples, (B, N, 2))
-    _check_f32_cuda("ego", ego, (B, 2))
-    if ego.device != samples.device:
-        raise ValueError("samples and ego must be on the same device")
+    B, N = _check_rows("all_metrics_halfspaces", samples, ego)
     out = MetricHalfspaces(*(torch.empty(shape, dtype=torch.float32,
                                          device=samples.device)
                              for shape in ((B, 2), (B,), (B, 2), (B,), (B,))))
@@ -105,6 +113,46 @@ def all_metrics_halfspaces(samples, ego, alpha: float, delta: float,
 
 
 all_metrics_halfspaces.launches = 0
+
+
+# The plain version: the composed DR-CVaR closed form (ops/halfspace.py).
+fused_drcvar_halfspace_plain = dr_cvar_halfspace
+
+
+def fused_drcvar_halfspace(samples, ego, alpha: float, delta: float,
+                           epsilon: float, robot_radius: float,
+                           obstacle_radius: float) -> Halfspace:
+    """DR-CVaR halfspaces of B rows of N samples: (h [B, 2], g_tilde [B]).
+
+    samples: [B, N, 2]; ego: [B, 2] ego reference positions.  The
+    offset is g* - r~ = CVaR - delta + epsilon/alpha (h is unit, so the
+    radii cancel).  On a CUDA tensor the kernel is the all-metrics
+    kernel with the other metrics compiled out: its (h, g_tilde) equal
+    `all_metrics_halfspaces`'s (h, g_drcvar) bit for bit.
+    """
+    if samples.device.type == "cpu":
+        return fused_drcvar_halfspace_plain(samples, ego, alpha, delta,
+                                            epsilon, robot_radius,
+                                            obstacle_radius)
+    B, N = _check_rows("fused_drcvar_halfspace", samples, ego)
+    out = Halfspace(torch.empty((B, 2), dtype=torch.float32,
+                                device=samples.device),
+                    torch.empty((B,), dtype=torch.float32,
+                                device=samples.device))
+    if B == 0:
+        return out
+    with torch.cuda.device(samples.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.load().lib.drcvar_fused_halfspace(
+            samples.data_ptr(), ego.data_ptr(), out.h.data_ptr(),
+            out.g_tilde.data_ptr(), B, N, cvar_k(N, alpha), 1.0 / N,
+            alpha * N, delta, epsilon / alpha, stream)
+    _build.check(err, "fused_drcvar_halfspace")
+    fused_drcvar_halfspace.launches += 1
+    return out
+
+
+fused_drcvar_halfspace.launches = 0
 
 
 def kth_largest(x, k: int):

@@ -12,8 +12,10 @@ Offset conventions (the reference's, quirks included):
   * cvar    : the offset is g* itself
   * dr_cvar : the offset is g* - r~
 
-These are the plain (composed) form of the all-metrics CUDA kernel
+These are the plain (composed) form of the halfspace CUDA kernels
 (ops/cuda_kernels.py) and the port's CPU / float64 path.
+`dr_cvar_g_star` / `cvar_g_star` are the closed forms for a GIVEN normal
+h, which the timing sweep (evaluation/timing_analysis.py) times.
 """
 
 from __future__ import annotations
@@ -106,3 +108,29 @@ def dr_cvar_halfspace(samples, ego_ref_pos, alpha, delta, epsilon,
                                       robot_radius, obstacle_radius)
     g_star = cvar + r_tilde - delta + epsilon / alpha
     return Halfspace(h, g_star - r_tilde)
+
+
+def _cvar_neg_proj_meancentered(samples, h, alpha):
+    """CVaR_alpha(-h . xi) centred on the sample mean (exact shift
+    identity; see `_centered_cvar_neg_proj` for why centring matters)."""
+    c = samples.mean(-2)
+    s_c = _project(samples - c[..., None, :], h)
+    shift = (h * c).sum(-1)
+    return cvar_rockafellar(-s_c, alpha) - shift
+
+
+def dr_cvar_g_star(samples, h, alpha, delta, epsilon,
+                   robot_radius, obstacle_radius):
+    """Raw (g*, g_tilde) pair for a given normal h [..., 2]."""
+    r_tilde = ((robot_radius + obstacle_radius)
+               * torch.linalg.vector_norm(h, dim=-1))
+    g_star = (_cvar_neg_proj_meancentered(samples, h, alpha)
+              + r_tilde - delta + epsilon / alpha)
+    return g_star, g_star - r_tilde
+
+
+def cvar_g_star(samples, h, alpha, delta, robot_radius, obstacle_radius):
+    """Raw g* for a given normal h [..., 2]."""
+    r_tilde = ((robot_radius + obstacle_radius)
+               * torch.linalg.vector_norm(h, dim=-1))
+    return _cvar_neg_proj_meancentered(samples, h, alpha) + r_tilde - delta

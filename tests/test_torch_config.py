@@ -94,5 +94,5 @@ def test_cli_single_mode(capsys):
         assert f"{metric} status: optimal" in out
     assert out.count("min distance") == 4
     assert result.filtered_u.shape == (1, 3, 30, 2)
-    with pytest.raises(SystemExit):
-        cli.main(["--mode", "monte_carlo"])
+    with pytest.raises(SystemExit):        # not a mode of the CLI
+        cli.main(["--mode", "animate"])

@@ -122,3 +122,100 @@ def test_pipeline_on_cuda_uses_the_kernels(cuda):
     dev = np.abs(gpu.filtered_u.cpu().double().numpy()
                  - cpu.filtered_u.numpy()).max()
     assert dev < 1e-4, dev
+
+
+def _rows(cuda, B, N, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = 0.5 + 0.1 * torch.randn(B, N, 2, device=cuda, generator=gen)
+    return x, 0.1 * torch.randn(B, 2, device=cuda, generator=gen)
+
+
+@pytest.mark.parametrize("B,N", [(2304, 1000), (7, 20), (5, 4096),
+                                 (1, 1000), (13, 1001)])
+def test_drcvar_kernel_bit_equal_to_all_metrics(cuda, B, N):
+    x, ego = _rows(cuda, B, N, B + N)
+    before = ck.fused_drcvar_halfspace.launches
+    h, g = ck.fused_drcvar_halfspace(x, ego, *ARGS)
+    torch.cuda.synchronize()
+    assert ck.fused_drcvar_halfspace.launches == before + 1
+    ref = ck.all_metrics_halfspaces(x, ego, *ARGS)
+    assert torch.equal(h, ref.h) and torch.equal(g, ref.g_drcvar)
+    plain = ck.fused_drcvar_halfspace_plain(x, ego, *ARGS)
+    torch.testing.assert_close(h, plain.h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(g, plain.g_tilde, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["prod_nosel", "nosel", "r3", "fixed12",
+                                     "fixed22", "minimal", "minimal_planes"])
+@pytest.mark.parametrize("B,N", [(4096, 1000), (9, 300)])
+def test_variant_kernels_match_plain(cuda, variant, B, N):
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        cuda_variants as cv)
+    x, ego = _rows(cuda, B, N, N)
+    if variant == "minimal_planes":
+        fn, out = cv.minimal_planes, cv.minimal_planes(x, ego)
+        ref = cv.minimal_planes_plain(x, ego)
+    else:
+        fn, out = cv.drcvar_variant, cv.drcvar_variant(x, ego, variant)
+        ref = cv.drcvar_variant_plain(x, ego, variant)
+    torch.cuda.synchronize()
+    assert fn.launches > 0
+    torch.testing.assert_close(out.h, ref.h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.g_tilde, ref.g_tilde, atol=2e-4,
+                               rtol=1e-5)
+
+
+def test_select_rounds_kernel_equals_plain(cuda):
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        cuda_variants as cv)
+    x, ego = _rows(cuda, 4096, 1000, 3)
+    x[:8] = torch.round(x[:8] * 4) / 4       # heavy ties
+    x[8:16] = x[8:16, :1]                    # constant rows
+    before = cv.select_rounds.launches
+    r = cv.select_rounds(x, ego, 0.2)
+    torch.cuda.synchronize()
+    assert cv.select_rounds.launches == before + 1
+    assert torch.equal(r, cv.select_rounds_plain(x, ego, 0.2))
+    assert r[8:16].tolist() == [1] * 8
+    assert 1 <= int(r.min()) and int(r.max()) <= 4
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        cuda_variants as cv)
+    x, ego = _rows(cuda, 4, 16, 0)
+    calls = {
+        "fused_drcvar_halfspace":
+            lambda s, e: ck.fused_drcvar_halfspace(s, e, *ARGS),
+        "drcvar_variant": lambda s, e: cv.drcvar_variant(s, e, "r3"),
+        "minimal_planes": cv.minimal_planes,
+        "select_rounds": lambda s, e: cv.select_rounds(s, e, 0.2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(TypeError):
+            call(x.double(), ego)
+        with pytest.raises(ValueError, match="CUDA"):
+            call(x, ego.cpu())
+        with pytest.raises(ValueError, match="shape"):
+            call(x, ego[:3])
+        with pytest.raises(ValueError):
+            call(x[..., :1].contiguous(), ego)
+        with pytest.raises(ValueError, match="contiguous"):
+            call(x.transpose(0, 1).contiguous().transpose(0, 1), ego)
+
+
+def test_monte_carlo_on_cuda_uses_the_kernels(cuda):
+    """A short Monte Carlo study on the card: kernels 1-3 launch, and two
+    runs from one seed give identical minimum distances."""
+    import dataclasses
+    params = dataclasses.replace(pt.config.get_parameters("custom"),
+                                 num_samples=100)
+    scenario = pt.config.get_scenario_config("head_on")
+    kernels = (ck.all_metrics_halfspaces, cl.batched_cholesky,
+               cl.batched_cho_solve)
+    before = [fn.launches for fn in kernels]
+    first, second = (pt.evaluation.run_monte_carlo_simulation(
+        scenario, params, n_runs=16, seed=5, device=cuda) for _ in range(2))
+    assert min(fn.launches - b for fn, b in zip(kernels, before)) > 0
+    assert bool(torch.isfinite(first.min_distances).all())
+    assert torch.equal(first.min_distances, second.min_distances)
