@@ -18,14 +18,21 @@ Phases (each prints its lines; any failed gate raises and the exit code
 is non-zero):
   1. device: nvidia-smi name and power limit, versions, TF32 flags;
   2. build: the kernels' nvcc build;
-  3. kernels against their plain versions at the paths' shapes, then
-     the kernel benchmark's attribution lines (launch counts from 0);
+  3. kernels against their plain versions at the paths' shapes, each
+     with its roofline bound; for the batched Cholesky and solve also
+     the device time as a CUDA graph of launches, the one PyTorch call
+     for the same function, a grid of sizes, matrices that are not
+     positive definite and the systems of a real IPM run; then the
+     kernel benchmark's attribution lines (launch counts from 0);
   4. seeded end to end: the reference's seed-42 streams (N = 20);
   5. the batch run, with its launch counts, checks and wall time;
   6. the entry points: Monte Carlo (twice from one seed, launch counts
      from 0, a CPU float64 re-run of its first runs) and the timing
      sweep.
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (for the batched
+Cholesky and solve `ms` is the device time as a CUDA graph of launches
+and `wrapper_ms` the time launch by launch; the solve's top-level
+numbers are k = 1's and `k65` holds k = 65's); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -48,11 +55,15 @@ TPU_PKG = "dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu"
 ARGS = (0.2, 0.1, 0.15, 0.3, 0.3)   # alpha, delta, epsilon, radii (custom)
 H_TOL, G_ATOL, G_RTOL, LINALG_RTOL = 1e-5, 2e-4, 1e-5, 1e-5
 ORACLE_TOL = 1e-4
+LINALG_RESIDUAL = 64 * 2.0 ** -24   # n eps: a backward-stable n <= 64 solve
 BATCH = dict(scenarios=256, n_samples=1000, sim_time=6.0, qp_iters=35,
              qp_tol=3e-5, seed=0, recheck=8)
 MC = dict(runs=300, recheck=8, tol=1e-3)
 # The JAX halfspace bench's shapes (bench.py) for the DR-CVaR solve.
 DRCVAR_SHAPES = ((32768, 1000), (8192, 4096), (1, 1000))
+# Operation counts a sample for the halfspace kernels' bounds (all of
+# them are bound by bytes: these are 5-10 times below).
+FLOPS_PER_SAMPLE, FLOPS_PER_SAMPLE_READ_ONLY, SELECT_OPS_PER_PASS = 16, 4, 4
 
 
 class GateFailed(RuntimeError):
@@ -135,6 +146,240 @@ def kernel_rows(pt, torch, statics, obstacles, ego_start, ego_goal,
     return rows, ego
 
 
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the given tensors (each input read once, each output
+    written once: the roofline's byte count)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def halfspace_entry(pt, err, k_ms, p_ms, tensors, flops_per_sample,
+                    select_passes=0.0) -> dict:
+    """A halfspace kernel's entry of the record.  Its bound: the bytes of
+    its inputs and outputs against `flops_per_sample` float operations a
+    sample (centring, moments, projection) plus SELECT_OPS_PER_PASS for
+    each pass of the select over the samples (the production select
+    makes its 4 passes whatever the data; where a kernel stops early,
+    the caller passes what this run's data needed)."""
+    n_samples = tensors[0].numel() // 2
+    bound, by = pt.experiments.linalg_bench.roofline_ms(
+        tensor_bytes(*tensors), n_samples * (
+            flops_per_sample + SELECT_OPS_PER_PASS * select_passes))
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def gate_linalg(out, plain, residual, label) -> float:
+    """A factor or a solution against its plain version: within
+    LINALG_RTOL relative in norm.  Where the matrix is too badly
+    conditioned for two float32 algorithms to agree that closely (the
+    IPM's late Schur matrices reach condition numbers of 1e7-1e8), the
+    relative residual `residual(out)`, evaluated in float64, is held to
+    LINALG_RESIDUAL instead: it does not grow with the condition number.
+    Returns the relative difference from the plain version."""
+    rel = rel_err(out, plain)
+    if rel < LINALG_RTOL:
+        return rel
+    gate(residual is not None, f"{label}: rel err {rel:.3e}")
+    ours, theirs = residual(out), residual(plain)
+    gate(ours < LINALG_RESIDUAL, f"{label}: {rel:.3e} from the plain version, "
+         f"residual {ours:.3e} (the plain version's {theirs:.3e})")
+    print(f"[kernels] {label}: {rel:.3e} from the plain version; relative "
+          f"residual {ours:.3e}, the plain version's {theirs:.3e}")
+    return rel
+
+
+def capture_ipm_systems(pt, torch, dev, streams):
+    """The Schur matrices and right-hand sides of every factorisation and
+    solve of one `solve_mpc_qp` run: the seeded multi_obstacle scenario
+    (custom preset, N = 20) through the float32 pipeline on the card."""
+    qp = pt.ops.qp_ipm_structured
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("multi_obstacle")
+    obs = streams.reference_rng_obstacles(scenario, params.sim_time,
+                                          params.dt, params.num_samples)
+    factored, solved = [], []
+    chol, solve = qp.batched_cholesky, qp.batched_cho_solve
+
+    def spy_chol(S):
+        factored.append(S)
+        return chol(S)
+
+    def spy_solve(L, r):
+        solved.append((L, r))
+        return solve(L, r)
+
+    qp.batched_cholesky, qp.batched_cho_solve = spy_chol, spy_solve
+    try:
+        pt.models.run_scenario_with_obstacles(
+            pt.models.make_statics(scenario, params, torch.float32, dev),
+            pt.convert.obstacle_data(obs, torch.float32, dev, True),
+            scenario.ego_start, scenario.ego_goal, params.ego_velocity)
+    finally:
+        qp.batched_cholesky, qp.batched_cho_solve = chol, solve
+    return factored, solved
+
+
+def phase_linalg(pt, torch, dev, streams, gen):
+    """Kernels 2 and 3 against their plain versions: timed at the QP
+    batch's shapes, then untimed over a grid of sizes, a batch with
+    matrices that are not positive definite, and the systems of a real
+    IPM run.  Returns their entries of the kernels' record."""
+    cl = pt.ops.cuda_linalg
+    lb = pt.experiments.linalg_bench
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def spd(B, n):
+        A = torch.randn(B, n, n, generator=gen, **f32)
+        return A @ A.mT + 3.0 * torch.eye(n, **f32)
+
+    warp_max_k = cl.solve_warp_max_k()
+    print(f"[kernels] batched_cho_solve: k <= {warp_max_k} goes to the "
+          f"warp-a-matrix kernel, larger k to a thread a right-hand side")
+
+    # Timed, at the QP batch (768 = 256 scenarios x 3 metrics): wrapper
+    # against plain in turns, the kernel alone as a CUDA graph of
+    # launches (device time), and the one library call beside them.
+    B = 768
+    entries = {}
+    errs = {"batched_cholesky": 0.0, "batched_cho_solve": 0.0}
+    for n in (60, 64):
+        S = spd(B, n)
+        L = cl.batched_cholesky(S)
+        L_ref = cl.batched_cholesky_plain(S)
+        rel = rel_err(L, L_ref)
+        gate(rel < LINALG_RTOL, f"cholesky n={n}: rel err {rel:.3e}")
+        gate(float(L.triu(1).abs().max()) == 0.0, "cholesky: upper part")
+        errs["batched_cholesky"] = max(errs["batched_cholesky"],
+                                       float((L - L_ref).abs().max()))
+        cases = [("batched_cholesky", None, lambda: cl.batched_cholesky(S),
+                  lambda: cl.batched_cholesky_plain(S),
+                  lambda: torch.linalg.cholesky_ex(S),
+                  lb.cholesky_bound_ms(B, n))]
+        for k in (1, 65):
+            r = torch.randn((B, n) if k == 1 else (B, n, k), generator=gen,
+                            **f32)
+            r3 = r if r.dim() == 3 else r[..., None]
+            x = cl.batched_cho_solve(L, r)
+            x_ref = cl.batched_cho_solve_plain(L, r)
+            rel = rel_err(x, x_ref)
+            gate(rel < LINALG_RTOL, f"solve n={n} k={k}: rel err {rel:.3e}")
+            errs["batched_cho_solve"] = max(errs["batched_cho_solve"],
+                                            float((x - x_ref).abs().max()))
+            cases.append(("batched_cho_solve", k,
+                          lambda r=r: cl.batched_cho_solve(L, r),
+                          lambda r=r: cl.batched_cho_solve_plain(L, r),
+                          lambda r3=r3: torch.cholesky_solve(r3, L),
+                          lb.cho_solve_bound_ms(B, n, k)))
+        for name, k, kernel, plain, library, (bound, bound_by) in cases:
+            wrapper_ms, plain_ms = plain_vs_kernel_ms(plain, kernel, reps=20)
+            graph_ms = (lb.graph_ms(kernel) + lb.graph_ms(kernel)) / 2
+            library_ms = lb.cuda_ms(library, 20)
+            what = name + ("" if k is None else f" k={k}")
+            print(f"[kernels] {what} [{B}, {n}, {n}]: {graph_ms:.4f} ms as a "
+                  f"CUDA graph of launches, {wrapper_ms:.4f} ms launch by "
+                  f"launch (plain {plain_ms:.4f} ms, library call "
+                  f"{library_ms:.4f} ms); bound {bound:.4f} ms by "
+                  f"{bound_by}, {bound / graph_ms:.1%} of it reached")
+            if n == 60:
+                entry = dict(ms=graph_ms, wrapper_ms=wrapper_ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=bound_by, library_ms=library_ms)
+                if k == 65:
+                    entries[name]["k65"] = entry
+                else:
+                    entries[name] = entry
+    for name, err in errs.items():
+        entries[name]["max_abs_err"] = err
+
+    # Untimed: sizes on both sides of 32 and of the solve's threshold.
+    worst = 0.0
+    for B in (1, 5):
+        for n in (1, 2, 31, 32, 33, 60, 64):
+            S = spd(B, n)
+            L = cl.batched_cholesky(S)
+            L_ref = cl.batched_cholesky_plain(S)
+            worst = max(worst, gate_linalg(L, L_ref, None,
+                                           f"cholesky B={B} n={n}"))
+            gate(float(L.triu(1).abs().max()) == 0.0,
+                 f"cholesky B={B} n={n}: upper part")
+            for k in (1, 2, 31, 32, 33, 65, 256):
+                r = torch.randn(B, n, k, generator=gen, **f32)
+                worst = max(worst, gate_linalg(
+                    cl.batched_cho_solve(L, r),
+                    cl.batched_cho_solve_plain(L, r), None,
+                    f"solve B={B} n={n} k={k}"))
+            r = torch.randn(B, n, generator=gen, **f32)
+            x = cl.batched_cho_solve(L, r)
+            gate(x.shape == r.shape, "solve: [B, n] shape")
+            worst = max(worst, gate_linalg(
+                x, cl.batched_cho_solve_plain(L, r), None,
+                f"solve B={B} n={n} vector"))
+    print(f"[kernels] batched_cholesky / batched_cho_solve: B in (1, 5), n in "
+          f"(1, 2, 31, 32, 33, 60, 64), k in (1, 2, 31, 32, 33, 65, 256) "
+          f"within {LINALG_RTOL} rel (worst {worst:.2e})")
+
+    # Matrices that are not positive definite, mixed into a batch: NaN
+    # where the plain version has NaN, the others bit for bit untouched.
+    for n in (33, 60, 64):
+        S = spd(8, n)
+        L_clean = cl.batched_cholesky(S)
+        S_bad = S.clone()
+        S_bad[2] = -S[2]
+        S_bad[5, n // 2, n // 2] = -1.0
+        L = cl.batched_cholesky(S_bad)
+        L_ref = cl.batched_cholesky_plain(S_bad)
+        gate(torch.equal(torch.isnan(L), torch.isnan(L_ref)),
+             f"cholesky n={n}: NaN pattern differs from the plain version")
+        gate(bool(torch.isnan(L[[2, 5]]).all()), "cholesky: bad not NaN")
+        good = [0, 1, 3, 4, 6, 7]
+        gate(torch.equal(L[good], L_clean[good]),
+             f"cholesky n={n}: a bad matrix changed its neighbours")
+        for k in (1, 65):
+            r = torch.randn(8, n, k, generator=gen, **f32)
+            x = cl.batched_cho_solve(L, r)
+            gate(bool(torch.isnan(x[[2, 5]]).all()),
+                 "solve: NaN factor gave a finite solution")
+            gate(torch.equal(x[good], cl.batched_cho_solve(L_clean, r)[good]),
+                 f"solve n={n} k={k}: a NaN factor changed its neighbours")
+    print("[kernels] not positive definite in a batch (n = 33, 60, 64): NaN "
+          "where the plain version has NaN, the other matrices bit-equal")
+
+    # The systems of a real IPM run.
+    factored, solved = capture_ipm_systems(pt, torch, dev, streams)
+    worst_l = worst_x = worst_cond = 0.0
+    for S in factored:
+        finite = torch.isfinite(cl.batched_cholesky_plain(S)).all(-1).all(-1)
+        S = S[finite]
+        S64 = S.double()
+        worst_l = max(worst_l, gate_linalg(
+            cl.batched_cholesky(S), cl.batched_cholesky_plain(S),
+            lambda L: rel_err(L.double() @ L.double().mT, S64),
+            f"IPM cholesky n={S.shape[1]}"))
+        worst_cond = max(worst_cond, float(torch.linalg.cond(S64).max()))
+    for L, r in solved:
+        finite = torch.isfinite(L).all(-1).all(-1)
+        L, r = L[finite], r[finite]
+        r64, L64 = r.double().reshape(*r.shape[:2], -1), L.double()
+
+        def residual(x):
+            x64 = x.double().reshape(r64.shape)
+            return float((L64 @ (L64.mT @ x64) - r64).norm()
+                         / (L64.norm() ** 2 * x64.norm() + r64.norm()))
+
+        worst_x = max(worst_x, gate_linalg(
+            cl.batched_cho_solve(L, r), cl.batched_cho_solve_plain(L, r),
+            residual, f"IPM solve n={L.shape[1]}"))
+    print(f"[kernels] one IPM run's systems (seeded multi_obstacle): "
+          f"{len(factored)} factorisations (condition number up to "
+          f"{worst_cond:.2e}) {worst_l:.2e} and {len(solved)} solves "
+          f"{worst_x:.2e} relative from the plain versions")
+    return entries
+
+
 def phase_kernels(pt, torch, dev, streams):
     """Every kernel against its plain version; returns, per kernel of the
     path, (max_abs_err, kernel ms, plain ms) at the main path's shape."""
@@ -170,7 +415,9 @@ def phase_kernels(pt, torch, dev, streams):
     k_ms, p_ms = plain_vs_kernel_ms(
         lambda: ck.all_metrics_halfspaces_plain(rows, ego, *ARGS),
         lambda: ck.all_metrics_halfspaces(rows, ego, *ARGS), reps=5)
-    record["all_metrics_halfspaces"] = (err, k_ms, p_ms)
+    record["all_metrics_halfspaces"] = halfspace_entry(
+        pt, err, k_ms, p_ms, (rows, ego, *ck.all_metrics_halfspaces(
+            rows, ego, *ARGS)), FLOPS_PER_SAMPLE, 4)
     print(f"[kernels] all_metrics_halfspaces B={rows.shape[0]} "
           f"N={rows.shape[1]}: max_abs_err {err:.3e}, {k_ms:.4f} ms "
           f"(plain {p_ms:.4f} ms)")
@@ -202,45 +449,7 @@ def phase_kernels(pt, torch, dev, streams):
     print("[kernels] all_metrics_halfspaces: N=20, N=4096, ragged B/N and "
           "the six adversarial cases within h 1e-5, g 2e-4 + 1e-5 rel")
 
-    # Kernels 2 and 3 at the QP batch (768 = 256 scenarios x 3 metrics).
-    errs = {"batched_cholesky": 0.0, "batched_cho_solve": 0.0}
-    times = {}
-    for n in (60, 64):
-        A = torch.randn(768, n, n, generator=gen, **f32)
-        S = A @ A.mT + 3.0 * torch.eye(n, **f32)
-        L = cl.batched_cholesky(S)
-        L_ref = cl.batched_cholesky_plain(S)
-        rel = float((L - L_ref).norm() / L_ref.norm())
-        gate(rel < LINALG_RTOL, f"cholesky n={n}: rel err {rel:.3e}")
-        gate(float(L.triu(1).abs().max()) == 0.0, "cholesky: upper part")
-        errs["batched_cholesky"] = max(errs["batched_cholesky"],
-                                       float((L - L_ref).abs().max()))
-        if n == 60:
-            times["batched_cholesky"] = plain_vs_kernel_ms(
-                lambda: cl.batched_cholesky_plain(S),
-                lambda: cl.batched_cholesky(S), reps=20)
-        for k in (1, 65):
-            shape = (768, n) if k == 1 else (768, n, k)
-            r = torch.randn(shape, generator=gen, **f32)
-            xs = cl.batched_cho_solve(L, r)
-            x_ref = cl.batched_cho_solve_plain(L, r)
-            rel = float((xs - x_ref).norm() / x_ref.norm())
-            gate(rel < LINALG_RTOL, f"solve n={n} k={k}: rel err {rel:.3e}")
-            errs["batched_cho_solve"] = max(errs["batched_cho_solve"],
-                                            float((xs - x_ref).abs().max()))
-            if n == 60:
-                times[f"batched_cho_solve_k{k}"] = plain_vs_kernel_ms(
-                    lambda: cl.batched_cho_solve_plain(L, r),
-                    lambda: cl.batched_cho_solve(L, r), reps=20)
-        print(f"[kernels] batched_cholesky / batched_cho_solve "
-              f"[768, {n}, {n}], k = 1 and 65: within {LINALG_RTOL} rel")
-    for name, (k_ms, p_ms) in times.items():
-        print(f"[kernels] {name} B=768 n=60: {k_ms:.4f} ms "
-              f"(plain {p_ms:.4f} ms)")
-    record["batched_cholesky"] = (errs["batched_cholesky"],
-                                  *times["batched_cholesky"])
-    record["batched_cho_solve"] = (errs["batched_cho_solve"],
-                                   *times["batched_cho_solve_k1"])
+    record.update(phase_linalg(pt, torch, dev, streams, gen))
 
     # Kernel 4: bit-equal to kernel 1 on the batch run's rows; within
     # kernel 1's tolerance of its plain version at the JAX bench shapes.
@@ -267,10 +476,11 @@ def phase_kernels(pt, torch, dev, streams):
               f"(plain {p_ms:.4f} ms), {B * N * 8 / k_ms / 1e6:.1f} GB/s "
               f"implied")
         if (B, N) == DRCVAR_SHAPES[0]:
-            record["fused_drcvar_halfspace"] = (err4, k_ms, p_ms)
+            record["fused_drcvar_halfspace"] = halfspace_entry(
+                pt, err4, k_ms, p_ms, (x, e, *ck.fused_drcvar_halfspace(
+                    x, e, *ARGS)), FLOPS_PER_SAMPLE, 4)
         del x, e
-    record["fused_drcvar_halfspace"] = (err4,
-                                        *record["fused_drcvar_halfspace"][1:])
+    record["fused_drcvar_halfspace"]["max_abs_err"] = err4
 
     # Kernels 5-7 at the kernel benchmark's shape.
     cv = pt.ops.cuda_variants
@@ -286,25 +496,35 @@ def phase_kernels(pt, torch, dev, streams):
         print(f"[kernels] drcvar_variant {v} B={kb.BATCH} N={kb.N_SAMPLES}: "
               f"max_abs_err {err:.3e}, {k_ms:.4f} ms (plain {p_ms:.4f} ms)")
         if v == "r3":
-            record["drcvar_variant"] = (err, k_ms, p_ms)
-    record["drcvar_variant"] = (err5, *record["drcvar_variant"][1:])
+            # r3's bisection stops early; its bound counts the most
+            # rounds it can take, and is still the bytes'.
+            record["drcvar_variant"] = halfspace_entry(
+                pt, err, k_ms, p_ms, (x, e, *cv.drcvar_variant(x, e, v)),
+                FLOPS_PER_SAMPLE, 22)
+    record["drcvar_variant"]["max_abs_err"] = err5
     err6 = check_hg(cv.minimal_planes(x, e), cv.minimal_planes_plain(x, e),
                     "minimal_planes")
-    record["minimal_planes"] = (err6, *plain_vs_kernel_ms(
+    record["minimal_planes"] = halfspace_entry(pt, err6, *plain_vs_kernel_ms(
         lambda: cv.minimal_planes_plain(x, e),
-        lambda: cv.minimal_planes(x, e), reps=5))
+        lambda: cv.minimal_planes(x, e), reps=5),
+        (x, e, *cv.minimal_planes(x, e)), FLOPS_PER_SAMPLE_READ_ONLY)
     rounds = cv.select_rounds(x, e, ARGS[0])
     rounds_ref = cv.select_rounds_plain(x, e, ARGS[0])
     gate(torch.equal(rounds, rounds_ref), "select_rounds: differs from plain "
          f"on {int((rounds != rounds_ref).sum())} rows")
-    record["select_rounds"] = (
-        float((rounds - rounds_ref).abs().max()), *plain_vs_kernel_ms(
+    record["select_rounds"] = halfspace_entry(
+        pt, float((rounds - rounds_ref).abs().max()), *plain_vs_kernel_ms(
             lambda: cv.select_rounds_plain(x, e, ARGS[0]),
-            lambda: cv.select_rounds(x, e, ARGS[0]), reps=3))
+            lambda: cv.select_rounds(x, e, ARGS[0]), reps=3),
+        (x, e, rounds), FLOPS_PER_SAMPLE, float(rounds.float().mean()))
     for name in ("minimal_planes", "select_rounds"):
         print(f"[kernels] {name} B={kb.BATCH} N={kb.N_SAMPLES}: max_abs_err "
-              f"{record[name][0]:.3e}, {record[name][1]:.4f} ms (plain "
-              f"{record[name][2]:.4f} ms)")
+              f"{record[name]['max_abs_err']:.3e}, {record[name]['ms']:.4f} "
+              f"ms (plain {record[name]['plain_ms']:.4f} ms)")
+    for name, entry in record.items():
+        print(f"[kernels] {name}: bound {entry['bound_ms']:.4f} ms by "
+              f"{entry['bound_by']}, {entry['bound_ms'] / entry['ms']:.1%} "
+              f"of it reached")
     print(f"[kernels] variants within h {H_TOL}, g {G_ATOL} + {G_RTOL} rel; "
           "select_rounds equal to its plain version on every row")
     del x, e
@@ -421,7 +641,7 @@ def phase_entry_points(pt, torch, dev, card):
         statics, pt.evaluation.monte_carlo.run_seeds(42, MC["runs"])[:n_re],
         scenario, params, int(params.sim_time / params.dt))
     cpu = pt.models.run_scenario_with_obstacles(
-        pt.models.make_statics(scenario, params, torch.float64),
+        pt.models.make_statics(scenario, params, torch.float64, "cpu"),
         pt.simulation.ObstacleData(*(t.cpu().double() for t in obs)),
         scenario.ego_start, scenario.ego_goal, params.ego_velocity)
     md_cpu, _ = pt.evaluation.monte_carlo.reduce_runs(cpu)
@@ -468,6 +688,7 @@ def main() -> int:
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as pt
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.cli  # noqa: F401,E501
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments.kbench  # noqa: F401,E501
+    import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments.linalg_bench  # noqa: F401,E501
 
     dev = torch.device("cuda", 0)
     ck, cl = pt.ops.cuda_kernels, pt.ops.cuda_linalg
@@ -537,7 +758,8 @@ def main() -> int:
     # Re-run the first scenarios through the CPU float64 plain path on
     # the same obstacle data.
     n_re = BATCH["recheck"]
-    cpu_statics = pt.models.make_statics(scenario, params, torch.float64)
+    cpu_statics = pt.models.make_statics(scenario, params, torch.float64,
+                                         "cpu")
     sub = pt.simulation.ObstacleData(*(t[:n_re].cpu().double()
                                        for t in res.obstacles))
     cpu = pt.models.run_scenario_with_obstacles(
@@ -557,7 +779,8 @@ def main() -> int:
           f"halfspace rows, "
           f"{3 * S} QPs; {res.obstacles.samples.numel() * 4 / 1e6:.0f} MB "
           f"of samples on the device")
-    print(f"[batch] converged {conv:.4f}, mean IPM iterations {iters:.2f}, "
+    print(f"[batch] converged {conv:.4f}, IPM iterations mean {iters:.4f} max "
+          f"{int(res.qp_iterations.max())}, "
           f"wall {device_ms:.1f} ms by CUDA events ({host_ms:.1f} ms host) "
           f"on {card}")
     print(f"[batch] CPU float64 re-run of {n_re} scenarios: converged flags "
@@ -584,9 +807,7 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source + src,
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": record[name][0], "ms": record[name][1],
-         "plain_ms": record[name][2]}
+         "replaces": replaces, "launches": launches[name], **record[name]}
         for name, src, replaces in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

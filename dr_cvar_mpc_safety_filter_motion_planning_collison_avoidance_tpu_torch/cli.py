@@ -2,7 +2,7 @@
 
     python -m dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.cli \
         --scenario head_on --mode single [--preset paper] [--dtype float64] \
-        [--device cpu|cuda] [--seed 42]
+        [--device cuda|cpu] [--seed 42]
     ... --mode monte_carlo --mc_runs 300 [--save_dir results]
     ... --mode timing_analysis --sample_sizes 10,50,100,500,1000,1500 \
         --timing_runs 50 [--save_dir results]
@@ -25,6 +25,8 @@ import argparse
 import os
 
 import torch
+
+from .config import DEFAULT_DEVICE
 
 
 def _dtype(args):
@@ -96,7 +98,7 @@ def run_monte_carlo(args):
     return result
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Run DR-CVaR Safety Filtering Scenarios "
                     "(PyTorch / CUDA port)")
@@ -117,13 +119,19 @@ def main(argv=None):
                         default="float32")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", choices=["cpu", "cuda"],
-                        default="cuda" if torch.cuda.is_available()
-                        else "cpu")
+                        default=DEFAULT_DEVICE,
+                        help="the card unless cpu is asked for; with no "
+                             "card the default fails, it does not move to "
+                             "the CPU")
     parser.add_argument("--save_dir", type=str, default="results")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="capture a torch.profiler trace of the run "
                              "into this directory (Chrome trace format)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.utils import (
         trace)

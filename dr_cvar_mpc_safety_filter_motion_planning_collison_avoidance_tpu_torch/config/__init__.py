@@ -1,4 +1,4 @@
-from .parameters import Parameters, CUSTOM, PAPER, PRESETS, get_parameters
+from .parameters import DEFAULT_DEVICE, Parameters, CUSTOM, PAPER, PRESETS, get_parameters
 from .scenarios import Scenario, SCENARIO_NAMES, get_scenario_config
 
 __all__ = [

@@ -10,6 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
+# The device every entry point of the port runs on unless the caller
+# passes another: the card.  The CPU is for callers that ask for it.
+DEFAULT_DEVICE = "cuda"
+
 
 @dataclasses.dataclass(frozen=True)
 class Parameters:

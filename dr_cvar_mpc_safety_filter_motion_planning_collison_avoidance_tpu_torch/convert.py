@@ -15,6 +15,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .config.parameters import DEFAULT_DEVICE
 from .models.mpc_filter import MPCProblem
 from .simulation.obstacles import ObstacleData
 
@@ -27,7 +28,7 @@ def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 
 
-def obstacle_data(src, dtype=torch.float32, device="cpu",
+def obstacle_data(src, dtype=torch.float32, device=DEFAULT_DEVICE,
                   add_batch: bool = False) -> ObstacleData:
     """ObstacleData from arrays with fields nominal / samples /
     realization.  `add_batch` prepends the scenario axis of size 1 (the
@@ -44,7 +45,7 @@ def obstacle_data_numpy(obs: ObstacleData) -> dict:
             for f in ObstacleData._fields}
 
 
-def mpc_problem(src, dtype=torch.float32, device="cpu") -> MPCProblem:
+def mpc_problem(src, dtype=torch.float32, device=DEFAULT_DEVICE) -> MPCProblem:
     """MPCProblem from the JAX problem's arrays and scalars."""
     arrays = {f: torch.as_tensor(np.array(_field(src, f)), dtype=dtype,
                                  device=device) for f in MPC_ARRAYS}

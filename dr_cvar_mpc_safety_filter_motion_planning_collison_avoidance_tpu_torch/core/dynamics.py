@@ -9,9 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config.parameters import DEFAULT_DEVICE
+
 
 def create_double_integrator_matrices(dt: float, dim: int = 2,
-                                      dtype=torch.float32, device="cpu"):
+                                      dtype=torch.float32, device=DEFAULT_DEVICE):
     """State-space matrices of a discrete double integrator.
 
     State [p, v] in R^{2*dim}.  Returns (A, B, C) with A: [2d,2d],
@@ -27,7 +29,7 @@ def create_double_integrator_matrices(dt: float, dim: int = 2,
 
 
 def create_single_integrator_matrices(dt: float, dim: int = 2,
-                                      dtype=torch.float32, device="cpu"):
+                                      dtype=torch.float32, device=DEFAULT_DEVICE):
     """Single-integrator matrices (A = I, B = dt I, C = I)."""
     eye = np.eye(dim)
     return tuple(torch.as_tensor(M, dtype=dtype, device=device)

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import Parameters, Scenario
+from ..config import DEFAULT_DEVICE, Parameters, Scenario
 from ..models.pipeline import (METRICS, PipelineStatics, ScenarioResult,
                                make_statics, run_scenario_with_obstacles)
 from ..simulation.obstacles import ObstacleData, generate_obstacle_scenarios
@@ -83,7 +83,7 @@ def reduce_runs(result: ScenarioResult):
 
 def run_monte_carlo_simulation(scenario: Scenario, params: Parameters,
                                n_runs: int | None = None, seed: int = 42,
-                               dtype=torch.float32, device="cpu",
+                               dtype=torch.float32, device=DEFAULT_DEVICE,
                                statics: PipelineStatics | None = None,
                                batched: bool = True,
                                chunk_size: int = 1024,

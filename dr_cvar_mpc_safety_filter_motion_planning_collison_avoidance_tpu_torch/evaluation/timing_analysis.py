@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import Parameters
+from ..config import DEFAULT_DEVICE, Parameters
 from ..models.pipeline import pin_matmul_precision
 from ..ops.halfspace import cvar_g_star, dr_cvar_g_star
 
@@ -78,7 +78,7 @@ def analyze_dr_cvar_computation_time(sample_sizes=(10, 50, 100, 500, 1000,
                                      n_runs: int = 50, save_dir=None,
                                      params: Parameters | None = None,
                                      repeats: int = 20, seed: int = 0,
-                                     dtype=torch.float32, device="cpu",
+                                     dtype=torch.float32, device=DEFAULT_DEVICE,
                                      verbose=True, resume: bool = False):
     """Sweep sample sizes and time batched halfspace solves.
 

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import Parameters, Scenario
+from ..config import DEFAULT_DEVICE, Parameters, Scenario
 from ..core.dynamics import simulate_linear_system
 from ..simulation.environment import (Environment, SafeHalfspaces,
                                       compute_distance_to_collision,
@@ -83,7 +83,7 @@ def pin_matmul_precision(device) -> None:
 
 
 def make_statics(scenario: Scenario, params: Parameters,
-                 dtype=torch.float32, device="cpu") -> PipelineStatics:
+                 dtype=torch.float32, device=DEFAULT_DEVICE) -> PipelineStatics:
     """Environment, planner and MPC problem for a scenario shape
     (n_obstacles) and parameter preset."""
     env = Environment(
@@ -219,7 +219,7 @@ def run_scenario_core(statics: PipelineStatics, generator,
 
 def run_single_scenario(scenario: Scenario, params: Parameters,
                         generator: torch.Generator | None = None,
-                        seed: int = 42, dtype=torch.float32, device="cpu",
+                        seed: int = 42, dtype=torch.float32, device=DEFAULT_DEVICE,
                         statics: PipelineStatics | None = None
                         ) -> ScenarioResult:
     """Build statics, seed a generator, run one scenario (S = 1).

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "drcvar_kth_largest": [_P, _P, _I, _I, _I, _P],
     "drcvar_batched_cholesky": [_P, _P, _I, _I, _P],
     "drcvar_batched_cho_solve": [_P, _P, _P, _I, _I, _I, _P],
+    "drcvar_cho_solve_warp_max_k": [],
 }
 
 
@@ -60,13 +61,21 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def load() -> KernelLibrary:
-    """Build (if needed) and load the kernel library."""
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def load(extra_flags: tuple = (), replace: tuple = ()) -> KernelLibrary:
+    """Build (if needed) and load the kernel library.
+
+    The port calls it without arguments.  A benchmark that compares two
+    builds passes `extra_flags` (more nvcc flags, e.g. a `-D`) or
+    `replace=(name, path)`, which compiles the file at `path` in place
+    of `csrc/<name>`; each combination is a library of its own.
+    """
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    swap = {replace[0]: Path(replace[1])} if replace else {}
+    sources = [swap.get(p.name, p) for p in sorted(CSRC.glob("*.cu"))]
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
-        digest.update(path.read_bytes())
+        digest.update(swap.get(path.name, path).read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     so_path = out_dir / LIB_NAME
     log_path = out_dir / "nvcc.log"
@@ -74,11 +83,14 @@ def load() -> KernelLibrary:
     if not so_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        log_path.write_text(_compile_and_link(sources, out_dir, so_path))
+        log_path.write_text(_compile_and_link(sources, flags, out_dir,
+                                              so_path))
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None and replace:
+            continue    # a replaced source may lack a newer entry point
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.drcvar_error_string.argtypes = [ctypes.c_int]
@@ -87,12 +99,12 @@ def load() -> KernelLibrary:
     return KernelLibrary(lib, so_path, seconds, log)
 
 
-def _compile_and_link(sources, out_dir: Path, so_path: Path) -> str:
+def _compile_and_link(sources, flags, out_dir: Path, so_path: Path) -> str:
     """One nvcc per source, all at once, then one link; returns the log."""
     nvcc, tag = _nvcc(), os.getpid()
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([nvcc, *flags, "-I", str(CSRC), "-c", "-o",
+                               str(obj), str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
     log = ""

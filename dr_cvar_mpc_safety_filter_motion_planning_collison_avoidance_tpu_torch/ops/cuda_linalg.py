@@ -9,7 +9,16 @@ callers pass flat `[B, n, n]` batches.
 Each wrapper dispatches on its input's device: on the CPU it runs the
 plain PyTorch form (`torch.linalg.cholesky_ex` / `torch.cholesky_solve`,
 any float dtype); on a CUDA tensor it launches its kernel (float32, n <=
-64) or raises.  No fallback on the card.
+64) or raises.  No fallback on the card.  What the kernels take is
+decided by `check_factor` and `check_solve`, pure functions of device
+type, dtype, shape and strides.
+
+A matrix that is not positive definite (a pivot that is not positive)
+factors to NaN in every entry, in the kernel as in the plain version;
+the other matrices of the batch are not affected.  The kernels for
+n = 60 and n = 64 (the MPC's sizes) keep rows in registers; the solve
+picks one of two kernels from the number of right-hand sides (the
+threshold is `solve_warp_max_k()`, a constant of the source).
 """
 
 from __future__ import annotations
@@ -38,38 +47,90 @@ def batched_cho_solve_plain(L, r):
     return torch.cholesky_solve(r, L)
 
 
-def _check(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                        f"{t.dtype}")
-    if t.device.type != "cuda":
+def is_contiguous(shape, strides) -> bool:
+    """Row-major contiguity from a shape and its strides (in elements)."""
+    if 0 in shape:
+        return True
+    expected = 1
+    for size, stride in zip(reversed(shape), reversed(strides)):
+        if size != 1 and stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+def _check_tensor(name, device_type, dtype, shape, strides) -> None:
+    if dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got {dtype}")
+    if device_type != "cuda":
         raise ValueError(f"{name}: expected a CUDA (or CPU) tensor, got "
-                         f"device {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+                         f"device type {device_type}")
+    if not is_contiguous(shape, strides):
+        raise ValueError(f"{name}: expected a contiguous tensor, got shape "
+                         f"{tuple(shape)} with strides {tuple(strides)}")
 
 
-def _check_factor(name: str, M: torch.Tensor) -> tuple[int, int]:
-    _check(name, M)
-    if M.dim() != 3 or M.shape[1] != M.shape[2] or M.shape[1] > N_MAX:
+def check_factor(name, device_type, dtype, shape, strides) -> tuple[int, int]:
+    """(B, n) of a [B, n, n] batch the kernels take, or raise."""
+    _check_tensor(name, device_type, dtype, shape, strides)
+    if len(shape) != 3 or shape[1] != shape[2] or shape[1] > N_MAX:
         raise ValueError(f"{name}: expected [B, n, n] with n <= {N_MAX}, "
-                         f"got {tuple(M.shape)}")
-    return M.shape[0], M.shape[1]
+                         f"got {tuple(shape)}")
+    return shape[0], shape[1]
+
+
+def check_solve(L_desc, r_desc) -> tuple[int, int, int]:
+    """(B, n, k) of factors [B, n, n] and a right-hand side [B, n]
+    (k = 1) or [B, n, k] the solve kernels take, or raise.  Each argument
+    is (device type, dtype, shape, strides)."""
+    _check_tensor("r", *r_desc)
+    B, n = check_factor("L", *L_desc)
+    shape = r_desc[2]
+    if len(shape) not in (2, 3):
+        raise ValueError(f"r: expected [B, n] or [B, n, k], got "
+                         f"{tuple(shape)}")
+    k = 1 if len(shape) == 2 else shape[2]
+    if tuple(shape[:2]) != (B, n) or not 1 <= k <= MAX_RHS:
+        raise ValueError(f"r: expected [{B}, {n}] or [{B}, {n}, k] with "
+                         f"1 <= k <= {MAX_RHS}, got {tuple(shape)}")
+    return B, n, k
+
+
+def _describe(t: torch.Tensor):
+    return t.device.type, t.dtype, tuple(t.shape), t.stride()
+
+
+def _launch(entry: str, device, *args) -> None:
+    """Call a C entry point on PyTorch's current stream of `device` and
+    raise on its CUDA error.  The device is switched only when it is not
+    the current one: the context manager costs more host time than the
+    kernels take on the card."""
+    fn = getattr(_build.load().lib, entry)
+    if device.index in (None, torch.cuda.current_device()):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, entry)
+
+
+def solve_warp_max_k() -> int:
+    """The most right-hand sides the warp-a-matrix solve kernel takes;
+    above it a thread owns a right-hand side (builds the kernels)."""
+    return _build.load().lib.drcvar_cho_solve_warp_max_k()
 
 
 def batched_cholesky(S):
-    """Lower-Cholesky factors of a batch of SPD matrices S [B, n, n]."""
+    """Lower-Cholesky factors of a batch of SPD matrices S [B, n, n];
+    all NaN for a matrix that is not positive definite."""
     if S.device.type == "cpu":
         return batched_cholesky_plain(S)
-    B, n = _check_factor("S", S)
+    B, n = check_factor("S", *_describe(S))
     L = torch.empty_like(S)
     if B == 0 or n == 0:
         return L
-    with torch.cuda.device(S.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.load().lib.drcvar_batched_cholesky(
-            S.data_ptr(), L.data_ptr(), B, n, stream)
-    _build.check(err, "batched_cholesky")
+    _launch("drcvar_batched_cholesky", S.device, S.data_ptr(), L.data_ptr(),
+            B, n)
     batched_cholesky.launches += 1
     return L
 
@@ -82,28 +143,14 @@ def batched_cho_solve(L, r):
     [B, n, k].  Returns x with r's shape."""
     if L.device.type == "cpu":
         return batched_cho_solve_plain(L, r)
-    _check("r", r)
-    B, n = _check_factor("L", L)
+    B, n, k = check_solve(_describe(L), _describe(r))
     if r.device != L.device:
         raise ValueError("L and r must be on the same device")
-    if r.dim() == 2:
-        k = 1
-    elif r.dim() == 3:
-        k = r.shape[2]
-    else:
-        raise ValueError(f"r: expected [B, n] or [B, n, k], got "
-                         f"{tuple(r.shape)}")
-    if tuple(r.shape[:2]) != (B, n) or not 1 <= k <= MAX_RHS:
-        raise ValueError(f"r: expected [{B}, {n}] or [{B}, {n}, k] with "
-                         f"1 <= k <= {MAX_RHS}, got {tuple(r.shape)}")
     x = torch.empty_like(r)
     if B == 0 or n == 0:
         return x
-    with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.load().lib.drcvar_batched_cho_solve(
-            L.data_ptr(), r.data_ptr(), x.data_ptr(), B, n, k, stream)
-    _build.check(err, "batched_cho_solve")
+    _launch("drcvar_batched_cho_solve", L.device, L.data_ptr(), r.data_ptr(),
+            x.data_ptr(), B, n, k)
     batched_cho_solve.launches += 1
     return x
 

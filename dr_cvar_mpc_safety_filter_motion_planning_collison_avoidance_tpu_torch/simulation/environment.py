@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config.parameters import DEFAULT_DEVICE
 from ..core.dynamics import create_double_integrator_matrices
 from ..ops.cuda_kernels import all_metrics_halfspaces
 from ..ops.halfspace import Halfspace
@@ -43,7 +44,7 @@ class Environment:
     delta: float
     epsilon: float
     dtype: torch.dtype = torch.float32
-    device: torch.device | str = "cpu"
+    device: torch.device | str = DEFAULT_DEVICE
 
     def __post_init__(self):
         A, B, C = create_double_integrator_matrices(

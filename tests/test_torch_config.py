@@ -62,7 +62,7 @@ params = dataclasses.replace(pt.config.get_parameters("custom"),
                              num_samples=8)
 scenario = pt.config.get_scenario_config("head_on")
 res = pt.models.run_single_scenario(scenario, params, seed=3,
-                                    dtype=torch.float64)
+                                    dtype=torch.float64, device="cpu")
 assert res.filtered_u.shape == (1, 3, params.horizon, 2)
 assert bool(torch.isfinite(res.distances).all())
 assert bool(res.qp_converged.all())
@@ -96,3 +96,53 @@ def test_cli_single_mode(capsys):
     assert result.filtered_u.shape == (1, 3, 30, 2)
     with pytest.raises(SystemExit):        # not a mode of the CLI
         cli.main(["--mode", "animate"])
+
+
+_DEVICE_DEFAULTS = [
+    ("models.pipeline", "make_statics"),
+    ("models.pipeline", "run_single_scenario"),
+    ("evaluation.monte_carlo", "run_monte_carlo_simulation"),
+    ("evaluation.timing_analysis", "analyze_dr_cvar_computation_time"),
+    ("core.dynamics", "create_double_integrator_matrices"),
+    ("core.dynamics", "create_single_integrator_matrices"),
+    ("convert", "obstacle_data"),
+    ("convert", "mpc_problem"),
+    ("simulation.environment", "Environment"),
+]
+
+
+@pytest.mark.parametrize("module,name", _DEVICE_DEFAULTS)
+def test_entry_points_default_to_the_card(module, name):
+    """Every `device=` of the port defaults to the one name, the card."""
+    import importlib
+    import inspect
+
+    assert pt.config.DEFAULT_DEVICE == "cuda"
+    mod = importlib.import_module(f"{pt.__name__}.{module}")
+    default = inspect.signature(getattr(mod, name)).parameters["device"].default
+    assert default is pt.config.DEFAULT_DEVICE
+
+
+def test_no_other_device_default_in_the_port():
+    """No signature of the port names a device of its own, and the CLI
+    does not look for a card to choose its default."""
+    for path in PORT_DIR.rglob("*.py"):
+        text = path.read_text()
+        assert 'device="cpu"' not in text.replace(" ", ""), path
+        assert "device='cpu'" not in text.replace(" ", ""), path
+    assert "is_available" not in (PORT_DIR / "cli.py").read_text()
+
+
+def test_cli_defaults_to_the_card_and_does_not_move_to_the_cpu(tmp_path):
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch import cli
+
+    parser = cli.build_parser()
+    assert parser.get_default("device") == pt.config.DEFAULT_DEVICE
+    assert parser.parse_args(["--device", "cpu"]).device == "cpu"
+    argv = ["--mode", "timing_analysis", "--sample_sizes", "5",
+            "--timing_runs", "2", "--save_dir", str(tmp_path)]
+    if torch.cuda.is_available():
+        cli.main(argv)
+    else:       # PyTorch's own error, not a run on the CPU
+        with pytest.raises((AssertionError, RuntimeError), match="(?i)cuda"):
+            cli.main(argv)

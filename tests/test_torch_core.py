@@ -35,7 +35,7 @@ def _close(ours, theirs, tol=TOL):
                                   "create_single_integrator_matrices"])
 @pytest.mark.parametrize("dt", [0.2, 0.05])
 def test_integrator_matrices(make, dt):
-    ours = getattr(tdyn, make)(dt, dtype=F64)
+    ours = getattr(tdyn, make)(dt, dtype=F64, device="cpu")
     theirs = getattr(jdyn, make)(dt, dtype=jnp.float64)
     for a, b in zip(ours, theirs):
         assert a.dtype == F64
@@ -57,7 +57,8 @@ def test_simulate_linear_system_batched():
 
 @pytest.mark.parametrize("horizon", [1, 5, 30])
 def test_condensed_dynamics(horizon):
-    A, B, _ = tdyn.create_double_integrator_matrices(0.2, dtype=F64)
+    A, B, _ = tdyn.create_double_integrator_matrices(0.2, dtype=F64,
+                                                    device="cpu")
     Phi, Gamma = tdyn.condensed_dynamics(A, B, horizon)
     jA, jB, _ = jdyn.create_double_integrator_matrices(0.2, dtype=jnp.float64)
     jPhi, jGamma = jdyn.condensed_dynamics(jA, jB, horizon)

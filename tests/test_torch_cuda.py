@@ -3,7 +3,7 @@
 Marked `cuda`; each test skips where torch sees no CUDA device (a CUDA
 kernel has no CPU mode).  Run on a machine with an H100:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: the k-th value bit-equal on identical
 inputs; h to 1e-5; g to atol 2e-4 / rtol 1e-5; L and x to 1e-5 relative
@@ -79,6 +79,94 @@ def test_cholesky_and_solve_match_plain(cuda, n):
         r = torch.randn(shape, device=cuda, generator=gen)
         x = cl.batched_cho_solve(L, r)
         assert _rel(x, cl.batched_cho_solve_plain(L, r)) < 1e-5
+
+
+def _spd(cuda, gen, B, n):
+    A = torch.randn(B, n, n, device=cuda, generator=gen)
+    return A @ A.mT + 3.0 * torch.eye(n, device=cuda)
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 60, 64])
+@pytest.mark.parametrize("B", [1, 5])
+def test_cholesky_and_solve_size_grid(cuda, B, n):
+    """Sizes on both sides of 32 (a lane's second row) and right-hand
+    side counts on both sides of the solve's kernel threshold."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * B + n)
+    S = _spd(cuda, gen, B, n)
+    L = cl.batched_cholesky(S)
+    assert _rel(L, cl.batched_cholesky_plain(S)) < 1e-5
+    assert float(L.triu(1).abs().max()) == 0.0
+    assert 1 <= cl.solve_warp_max_k() < 65
+    for k in (0, 1, 2, 31, 32, 33, 65, 256):
+        shape = (B, n) if k == 0 else (B, n, k)
+        r = torch.randn(shape, device=cuda, generator=gen)
+        x = cl.batched_cho_solve(L, r)
+        assert x.shape == r.shape
+        assert _rel(x, cl.batched_cho_solve_plain(L, r)) < 1e-5, k
+
+
+@pytest.mark.parametrize("n", [33, 60, 64])
+def test_not_positive_definite_in_a_batch(cuda, n):
+    """NaN where the plain version has NaN (the whole matrix), the other
+    matrices of the batch bit for bit what they are without it."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    S = _spd(cuda, gen, 8, n)
+    L_clean = cl.batched_cholesky(S)
+    S_bad = S.clone()
+    S_bad[2] = -S[2]
+    S_bad[5, n // 2, n // 2] = -1.0
+    L = cl.batched_cholesky(S_bad)
+    assert torch.equal(torch.isnan(L),
+                       torch.isnan(cl.batched_cholesky_plain(S_bad)))
+    assert bool(torch.isnan(L[[2, 5]]).all())
+    good = [0, 1, 3, 4, 6, 7]
+    assert torch.equal(L[good], L_clean[good])
+    for k in (1, 65):
+        r = torch.randn(8, n, k, device=cuda, generator=gen)
+        x = cl.batched_cho_solve(L, r)
+        assert bool(torch.isnan(x[[2, 5]]).all())
+        assert torch.equal(x[good], cl.batched_cho_solve(L_clean, r)[good])
+
+
+def test_unaligned_views_take_the_generic_kernels(cuda):
+    """A contiguous view that starts 4 bytes into its storage is not
+    16-byte aligned: the n = 60 kernels' vector loads must not see it."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    S = _spd(cuda, gen, 4, 60)
+    flat = torch.empty(S.numel() + 1, device=cuda)
+    view = flat[1:].view_as(S).copy_(S)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    L = cl.batched_cholesky(view)
+    assert _rel(L, cl.batched_cholesky_plain(S)) < 1e-5
+    Lview = flat[1:].view_as(S).copy_(L)
+    r = torch.randn(4, 60, 65, device=cuda, generator=gen)
+    for rhs in (r, r[:, :, 0].contiguous()):
+        assert _rel(cl.batched_cho_solve(Lview, rhs),
+                    cl.batched_cho_solve_plain(L, rhs)) < 1e-5
+
+
+def test_batch_run_launch_counts(cuda):
+    """One 8-scenario batch run: one factorisation and two solves for
+    each of the IPM's 16 passes, two and six more in the polish."""
+    import dataclasses
+    params = dataclasses.replace(pt.config.get_parameters("custom"),
+                                 num_samples=1000, sim_time=6.0)
+    scenario = pt.config.get_scenario_config("multi_obstacle")
+    statics = pt.models.make_statics(scenario, params, torch.float32, cuda)
+    kernels = (ck.all_metrics_halfspaces, cl.batched_cholesky,
+               cl.batched_cho_solve)
+    before = [fn.launches for fn in kernels]
+    res = pt.models.run_scenario_core(
+        statics, torch.Generator(device=cuda).manual_seed(0),
+        scenario.ego_start, scenario.ego_goal, scenario.obstacle_starts,
+        scenario.obstacle_directions, scenario.obstacle_speeds,
+        int(params.sim_time / params.dt), params.num_samples,
+        params.noise_var, params.ego_velocity, qp_iters=35, qp_tol=3e-5,
+        n_scenarios=8)
+    passes = int(res.qp_iterations.max()) + 1
+    assert [fn.launches - b for fn, b in zip(kernels, before)] == \
+        [1, passes + 2, 2 * passes + 6]
+    assert bool(res.qp_converged.all())
 
 
 def test_kernels_reject_non_f32_on_cuda(cuda):

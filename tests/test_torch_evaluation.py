@@ -88,9 +88,10 @@ def test_mc_reduction_matches_jax_on_injected_obstacles():
             for s in (1, 2, 3)]
     stacked = {k: np.stack([r[k] for r in runs]) for k in runs[0]}
 
-    statics = pt.models.make_statics(scenario, params, torch.float64)
+    statics = pt.models.make_statics(scenario, params, torch.float64,
+                                     "cpu")
     res = pt.models.run_scenario_with_obstacles(
-        statics, pt.convert.obstacle_data(stacked, torch.float64),
+        statics, pt.convert.obstacle_data(stacked, torch.float64, "cpu"),
         scenario.ego_start, scenario.ego_goal, params.ego_velocity)
     min_d, conv = tmc.reduce_runs(res)
 
@@ -118,7 +119,7 @@ def test_mc_results_do_not_depend_on_chunking(dtype):
                            (1024, False)):
         runs[chunk, batched] = pt.evaluation.run_monte_carlo_simulation(
             scenario, params, n_runs=n_runs, seed=7, dtype=dtype,
-            chunk_size=chunk, batched=batched)
+            chunk_size=chunk, batched=batched, device="cpu")
     ref = runs[n_runs, True]
     assert ref.min_distances.shape == (n_runs, 4)
     assert ref.min_distances.dtype == dtype
@@ -131,7 +132,8 @@ def test_mc_results_do_not_depend_on_chunking(dtype):
         ref.collision_probs.numpy(),
         (ref.min_distances < 0).double().mean(0).numpy(), rtol=1e-6)
     other_seed = pt.evaluation.run_monte_carlo_simulation(
-        scenario, params, n_runs=n_runs, seed=8, dtype=dtype)
+        scenario, params, n_runs=n_runs, seed=8, dtype=dtype,
+        device="cpu")
     assert not torch.equal(other_seed.min_distances, ref.min_distances)
 
 
@@ -162,7 +164,7 @@ def test_mc_result_npz_roundtrip_and_summary(tmp_path, capsys):
 
 def test_timing_npz_checkpoint_and_resume(tmp_path):
     kw = dict(n_runs=4, repeats=3, save_dir=str(tmp_path),
-              dtype=torch.float64, verbose=False)
+              dtype=torch.float64, device="cpu", verbose=False)
     first = ttiming.analyze_dr_cvar_computation_time(sample_sizes=(10,), **kw)
     assert set(first) == set(ttiming.TIMING_KEYS)
     npz = tmp_path / "timing_data.npz"
@@ -183,7 +185,8 @@ def test_timing_npz_checkpoint_and_resume(tmp_path):
 
 def test_timing_csv_matches_the_jax_table(tmp_path):
     data = ttiming.analyze_dr_cvar_computation_time(
-        sample_sizes=(10, 20), n_runs=3, repeats=2, verbose=False)
+        sample_sizes=(10, 20), n_runs=3, repeats=2, device="cpu",
+        verbose=False)
     assert all(len(data[k][n]) == 2 for k in data for n in (10, 20))
     ours_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
     ours_dir.mkdir()
@@ -211,7 +214,7 @@ def test_timing_without_save_dir_writes_and_plots_nothing(tmp_path,
     monkeypatch.setattr(ttiming, "plot_timing_results", no_plot)
     monkeypatch.chdir(tmp_path)
     data = ttiming.analyze_dr_cvar_computation_time(
-        sample_sizes=(10,), n_runs=2, repeats=2, verbose=True)
+        sample_sizes=(10,), n_runs=2, repeats=2, device="cpu", verbose=True)
     assert len(data["cvar_call_times"][10]) == 2
     assert list(tmp_path.iterdir()) == []
 
@@ -233,7 +236,7 @@ def test_timing_instances_are_the_jax_instances(monkeypatch):
     monkeypatch.setattr(ttiming, "_make_batched_solvers", spy)
     ttiming.analyze_dr_cvar_computation_time(
         sample_sizes=(5,), n_runs=3, repeats=1, seed=3, dtype=torch.float64,
-        verbose=False)
+        device="cpu", verbose=False)
     rng = np.random.default_rng(3)
     want = np.array([0.5, 0.0]) + 0.1 * rng.normal(size=(3, 5, 2))
     assert len(seen) == 2                  # the excluded first call + 1

@@ -161,7 +161,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 def _env_pair(horizon):
     kw = dict(robot_radius=RR, obstacle_radius=RO, horizon=horizon, dt=0.2,
               alpha=ALPHA, delta=DELTA, epsilon=EPS)
-    return (tenv.Environment(**kw, dtype=torch.float64),
+    return (tenv.Environment(**kw, dtype=torch.float64, device="cpu"),
             jenv.Environment(**kw, dtype=jnp.float64))
 
 

@@ -94,7 +94,7 @@ def _box_solves(data, dtype, bounds=(U_MIN, -U_MIN, P_MIN, -P_MIN)):
     """Port (one batch) and JAX (per instance) `_filter_core` solves."""
     A, Bm, C = j_matrices(0.2, dtype=JDT[dtype])
     jprob = j_build(A, Bm, C, 2.0, 1.0, 30, 3)
-    tprob = t_build(*t_matrices(0.2, dtype=dtype), 2.0, 1.0, 30, 3)
+    tprob = t_build(*t_matrices(0.2, dtype=dtype, device="cpu"), 2.0, 1.0, 30, 3)
     ours = t_filter_core(
         tprob, *[torch.as_tensor(x, dtype=dtype) for x in data],
         *[torch.as_tensor(v, dtype=dtype) for v in bounds], 60, None)
@@ -142,7 +142,7 @@ def test_iteration_cap_freezes_lanes():
     gives the same result as inside the batch."""
     B = 3
     data = _box_problem_data(1, B)
-    tprob = t_build(*t_matrices(0.2, dtype=torch.float64), 2.0, 1.0, 30, 3)
+    tprob = t_build(*t_matrices(0.2, dtype=torch.float64, device="cpu"), 2.0, 1.0, 30, 3)
     args = [torch.as_tensor(v) for v in (U_MIN, -U_MIN, P_MIN, -P_MIN)]
     tdata = [torch.as_tensor(x) for x in data]
     _, _, capped, _ = t_filter_core(tprob, *tdata, *args, 3, None)
@@ -159,8 +159,8 @@ def test_iteration_cap_freezes_lanes():
 def test_convert_round_trips_and_build_matches_jax():
     A, Bm, C = j_matrices(0.2, dtype=jnp.float64)
     jprob = j_build(A, Bm, C, 2.0, 1.0, 30, 3)
-    from_jax = convert.mpc_problem(jprob, torch.float64)
-    ours = t_build(*t_matrices(0.2, dtype=torch.float64), 2.0, 1.0, 30, 3)
+    from_jax = convert.mpc_problem(jprob, torch.float64, "cpu")
+    ours = t_build(*t_matrices(0.2, dtype=torch.float64, device="cpu"), 2.0, 1.0, 30, 3)
     for f in convert.MPC_ARRAYS:
         np.testing.assert_allclose(getattr(ours, f).numpy(),
                                    getattr(from_jax, f).numpy(), rtol=0,
@@ -170,7 +170,7 @@ def test_convert_round_trips_and_build_matches_jax():
     back = convert.mpc_problem_numpy(from_jax)
     for f in convert.MPC_ARRAYS:
         np.testing.assert_array_equal(back[f], np.asarray(getattr(jprob, f)))
-    again = convert.mpc_problem(back, torch.float64)
+    again = convert.mpc_problem(back, torch.float64, "cpu")
     assert all(torch.equal(getattr(again, f), getattr(from_jax, f))
                for f in convert.MPC_ARRAYS)
 
@@ -178,12 +178,13 @@ def test_convert_round_trips_and_build_matches_jax():
     obs = {"nominal": rng.normal(size=(2, 7, 2)),
            "samples": rng.normal(size=(2, 5, 7, 2)),
            "realization": rng.normal(size=(2, 7, 2))}
-    tobs = convert.obstacle_data(obs, torch.float64, add_batch=True)
+    tobs = convert.obstacle_data(obs, torch.float64, "cpu",
+                                 add_batch=True)
     assert tobs.samples.shape == (1, 2, 5, 7, 2)
     back = convert.obstacle_data_numpy(tobs)
     for f, v in obs.items():
         np.testing.assert_array_equal(back[f][0], v)
     jobs_like = jax.tree_util.tree_map(jnp.asarray, obs)
     assert torch.equal(convert.obstacle_data(jobs_like, torch.float64,
-                                             add_batch=True).samples,
+                                             "cpu", add_batch=True).samples,
                        tobs.samples)

@@ -37,9 +37,9 @@ def _case(preset, name):
 
 def _port_run(preset, name, dtype=F64):
     params, scenario, obs = _case(preset, name)
-    statics = pt.models.make_statics(scenario, params, dtype)
+    statics = pt.models.make_statics(scenario, params, dtype, "cpu")
     return pt.models.run_scenario_with_obstacles(
-        statics, pt.convert.obstacle_data(obs, dtype, add_batch=True),
+        statics, pt.convert.obstacle_data(obs, dtype, "cpu", add_batch=True),
         scenario.ego_start, scenario.ego_goal, params.ego_velocity)
 
 
@@ -108,9 +108,9 @@ def test_batch_of_scenarios_equals_single_runs():
     cases = [_case("custom", n) for n in names]
     params = cases[0][0]
     obs = {k: np.stack([c[2][k] for c in cases]) for k in cases[0][2]}
-    statics = pt.models.make_statics(cases[0][1], params, F64)
+    statics = pt.models.make_statics(cases[0][1], params, F64, "cpu")
     batch = pt.models.run_scenario_with_obstacles(
-        statics, pt.convert.obstacle_data(obs, F64),
+        statics, pt.convert.obstacle_data(obs, F64, "cpu"),
         np.stack([c[1].ego_start for c in cases]),
         np.stack([c[1].ego_goal for c in cases]), params.ego_velocity)
     for i, single in enumerate(singles):
@@ -123,14 +123,15 @@ def test_batch_of_scenarios_equals_single_runs():
 def test_run_single_scenario_generates_and_converges():
     params = pt.config.get_parameters("custom")
     scenario = pt.config.get_scenario_config("multi_obstacle")
-    res = pt.models.run_single_scenario(scenario, params, seed=0, dtype=F64)
+    res = pt.models.run_single_scenario(scenario, params, seed=0, dtype=F64,
+                                        device="cpu")
     assert res.obstacles.samples.shape == (1, 3, 20, 151, 2)
     assert res.wall_time_ms > 0
     assert bool(res.qp_converged.all())
     assert not bool(res.used_fallback.any())
     assert bool(torch.isfinite(res.distances).all())
     again = pt.models.run_single_scenario(scenario, params, seed=0,
-                                          dtype=F64)
+                                          dtype=F64, device="cpu")
     assert torch.equal(again.filtered_u, res.filtered_u)
 
 

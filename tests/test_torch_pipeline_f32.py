@@ -30,8 +30,9 @@ def runs():
         obs = reference_rng_obstacles(scenario, params.sim_time, params.dt,
                                       params.num_samples)
         ours = pt.models.run_scenario_with_obstacles(
-            pt.models.make_statics(scenario, params, torch.float32),
-            pt.convert.obstacle_data(obs, torch.float32, add_batch=True),
+            pt.models.make_statics(scenario, params, torch.float32, "cpu"),
+            pt.convert.obstacle_data(obs, torch.float32, "cpu",
+                                     add_batch=True),
             scenario.ego_start, scenario.ego_goal, params.ego_velocity)
         theirs = jpipe.run_scenario_with_obstacles(
             jpipe.make_statics(scenario, params, jnp.float32),

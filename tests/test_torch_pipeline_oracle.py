@@ -30,8 +30,9 @@ def oracle_runs(name):
     obs = reference_rng_obstacles(scenario, params.sim_time, params.dt,
                                   params.num_samples)
     runs = {dtype: pt.models.run_scenario_with_obstacles(
-                pt.models.make_statics(scenario, params, dtype),
-                pt.convert.obstacle_data(obs, dtype, add_batch=True),
+                pt.models.make_statics(scenario, params, dtype, "cpu"),
+                pt.convert.obstacle_data(obs, dtype, "cpu",
+                                         add_batch=True),
                 scenario.ego_start, scenario.ego_goal, params.ego_velocity)
             for dtype in TOL}
     res64 = runs[torch.float64]
