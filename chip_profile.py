@@ -33,7 +33,8 @@ import chip_smoke as cs
 STAGES = ("generate_obstacle_scenarios", "straight_line_trajectory",
           "compute_safe_halfspaces_for_trajectory", "_filter_core",
           "simulate_linear_system", "compute_distance_to_collision")
-HAND_KERNELS = ("halfspace_kernel", "cholesky_kernel", "cho_solve_")
+HAND_KERNELS = ("halfspace_warp_kernel", "halfspace_block_kernel",
+                "cholesky_kernel", "cho_solve_")
 WARMUP, TIMED = 2, 5
 
 

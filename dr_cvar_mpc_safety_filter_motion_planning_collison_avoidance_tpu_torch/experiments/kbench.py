@@ -4,14 +4,23 @@ Port of the JAX package's experiments/kbench.py.  Times the kernel and
 its attribution variants (ops/cuda_variants.py) at the bench shape,
 batch 32768 x N = 1000, on one CUDA device:
 
-  prod            the production kernel (`fused_drcvar_halfspace`);
-  prod_nosel      its pre-select stages with sigma, no select;
-  nosel           the pre-select stages alone;
-  r3, fixed12/22  the TPU's 3-ary bisection select (early exit / fixed);
-  minimal         one read of the samples, two row sums;
-  minimal_planes  the read floor (the same, plus ego);
-  select_rounds   how many of the production select's 4 passes each row
-                  needs (printed as a distribution).
+  prod            the production kernel (`fused_drcvar_halfspace`: at this
+                  shape a warp a row, the samples in registers);
+  prod_nosel      a block a row: the pre-select stages with sigma, no
+                  select;
+  nosel           a block a row: the pre-select stages alone;
+  r3, fixed12/22  a block a row with the TPU's 3-ary bisection select
+                  (early exit / fixed);
+  minimal         a block a row: one read of the samples, two row sums;
+  minimal_planes  the same, plus ego: the read floor of a block a row;
+  select_rounds   how many of the 4 passes of the block-wide radix select
+                  each row needs (printed as a distribution).
+
+Every variant but `prod` is one thread block per row, the design of the
+production kernel's path for rows of more than 1024 samples.  Their
+differences attribute that design's time to its stages; `prod` itself is
+faster than `nosel` here, so they no longer say where its time goes
+(`experiments/halfspace_bench.py` does, with probes).
 
     python -m dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments.kbench [variant ...]
 

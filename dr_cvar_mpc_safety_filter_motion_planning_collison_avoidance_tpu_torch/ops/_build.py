@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -31,11 +33,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every pointer and the stream are c_void_p: without argtypes ctypes
 # would pass a Python int as a 32-bit int and cut the pointer.
 _SIGNATURES = {
-    "drcvar_all_metrics_halfspaces": [_P] * 7 + [_I] * 3 + [_F] * 5 + [_P],
-    "drcvar_fused_halfspace": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P],
+    "drcvar_all_metrics_halfspaces": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P],
+    "drcvar_fused_halfspace": [_P] * 4 + [_I] * 6 + [_F] * 4 + [_P],
     "drcvar_variant": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_P],
     "drcvar_select_rounds": [_P] * 3 + [_I] * 3 + [_F, _P],
-    "drcvar_kth_largest": [_P, _P, _I, _I, _I, _P],
+    "drcvar_kth_largest": [_P, _P] + [_I] * 5 + [_P],
     "drcvar_batched_cholesky": [_P, _P, _I, _I, _P],
     "drcvar_batched_cho_solve": [_P, _P, _P, _I, _I, _I, _P],
     "drcvar_cho_solve_warp_max_k": [],
@@ -136,3 +138,17 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().lib.drcvar_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call a C entry point on PyTorch's current stream of `device` and
+    raise on its CUDA error.  The device is switched only when it is not
+    the current one: the context manager costs more host time than the
+    kernels take on the card."""
+    fn = getattr(load().lib, entry)
+    if device.index in (None, torch.cuda.current_device()):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, entry)

@@ -1,8 +1,10 @@
 // Device code shared by the halfspace kernels (halfspace_kernels.cu) and
-// their attribution variants (halfspace_variants.cu): one thread block
-// per row of N samples, block-wide reductions, the monotone float ->
-// uint32 key map and the 4-pass 8-bit radix select.  Both files include
-// it, so every kernel runs the same select and the same reductions.
+// their attribution variants (halfspace_variants.cu): the monotone float
+// -> uint32 key map and, for one thread block per row of N samples, the
+// block-wide reductions and the 4-pass 8-bit radix select.  The block
+// path of the halfspace kernels (rows of more than 1024 samples) and
+// every variant run these; rows that fit a warp run the warp-level
+// select of halfspace_warp.cuh instead.
 
 #pragma once
 

@@ -6,9 +6,8 @@
 // entered through `fused_metric_halfspaces_planes`);
 // `drcvar_fused_halfspace` replaces `_drcvar_kernel` (entered through
 // `fused_drcvar_halfspace_planes`, the public `fused_drcvar_halfspace`).
-// One thread block per row; a row is one (scenario, timestep, obstacle)
-// instance with N obstacle samples.  From ONE row of samples the kernel
-// computes:
+// A row is one (scenario, timestep, obstacle) instance with N obstacle
+// samples.  From ONE row of samples the kernels compute:
 //
 //   * ego-centred sample mean (centre before summing: near closest
 //     approach mean - ego is O(1e-3) while positions are O(10));
@@ -22,44 +21,205 @@
 //     mean metric's h_mean, g_mean (its normal taken from the ORIGIN, a
 //     reference quirk).
 //
-// The body is one template on the output set, instantiated twice: the
+// Each body is one template on the output set, instantiated twice: the
 // DR-CVaR-only kernel is the all-metrics kernel with the mean metric's
 // work compiled out, so the two give bit-equal (h, g_drcvar) on the
-// same rows.
+// same rows, on either path.
 //
-// What bounds it on this card: the samples are read twice from device
-// memory (8 bytes each; the second read of a row usually hits L2) and
-// the select makes four passes over the row's projections in shared
-// memory, 4 bytes each.  At N = 1000 a row is 8 KB of samples and 4 KB of
-// shared memory, so the kernel is bound by the latency of its block-wide
-// barriers and the histogram's shared-memory atomics, not by bandwidth.
+// What bounds them on this card: bytes.  A row of N = 1000 is 8 KB of
+// samples and some 20 bytes of results, and the arithmetic (16 float
+// operations a sample, three or so passes of an 8-bit radix select) is
+// 5-10 times below the float32 rate.  What kept a block-a-row design at
+// a quarter of that bound was not arithmetic either but latency: some 29
+// block-wide barriers a row with 4 samples a thread between them, a
+// second read of the samples, and blocks that load for a short part of
+// their life.
 //
-// What the design does about it: the TPU kernel's packed-count
-// bisection with moment-seeded pivots (tuned for the TPU's vector unit)
-// is replaced by a bounded 4-pass radix select: each pass histograms
-// the next 8 bits of the monotone float -> uint32 key of the rows still
-// matching the prefix, in 256 int32 shared-memory counters, and one
-// block-wide scan picks the bin holding the k-th largest.  Exactly four
-// passes whatever the data (ties, constant rows, outliers), and no
-// packed fields, so N is bounded only by shared memory (4 bytes a
-// sample).  Samples are read as [B, N, 2] float2 directly: the TPU's SoA
-// planes and its 128-lane / row-tile padding are layout, not contract.
+// What the design does about it, for N <= 1024 (the warp path):
+//
+//   * One warp owns a row and a block is a few independent warps: there
+//     is no __syncthreads() anywhere, only __syncwarp() around the
+//     warp's own 256 histogram counters in shared memory.
+//   * A lane holds up to 32 samples in registers (the number is a
+//     template parameter: 2, 4, 8, 16 or 32 values a lane for N <= 64
+//     ... 1024; slots past N are masked out of the sums and become -inf,
+//     the smallest key, for the select).  The samples are read from
+//     device memory ONCE, as 16-byte loads of two samples (8-byte loads
+//     when a row's base is not 16-byte aligned: odd N or an offset view;
+//     the caller says which, the entry point checks it), all issued
+//     before the first use.  Both widths give a lane the same samples,
+//     so their results are bit-equal.
+//   * Sums are a lane's own registers in order, then a xor butterfly of
+//     shuffles: a fixed order.
+//   * The select (halfspace_warp.cuh) is the exact 8-bit radix select on
+//     the monotone float -> uint32 keys, per warp: shared-memory atomics
+//     into the warp's own counters, a scan of 8 bins a lane and five
+//     shuffles, and it leaves as soon as the chosen bin holds one key.
+//   * The tail and the outputs come from the registers that hold the
+//     keys; lane 0 writes.
+//   * The loads of one warp overlap the select of the others: at 96
+//     registers a thread 20 rows are in flight an SM, and the schedulers'
+//     instruction rate, not the loads, sets the kernel's time (a variant
+//     that prefetched a warp's next row into shared memory while it
+//     selected was slower on an H100).
+//
+// Rows of more than 1024 samples (up to 49152, the block path) keep one
+// 256-thread block a row with the projections in shared memory and the
+// block-wide 4-pass select of halfspace_common.cuh: there the block's
+// fixed cost is spread over 4 or more times the samples.
+//
+// Samples are read as [B, N, 2] float2 directly: the TPU's SoA planes
+// and its 128-lane / row-tile padding are layout, not contract.
 
-#include "halfspace_common.cuh"
+#include <cstdint>
+#include <type_traits>
+
+#include "halfspace_warp.cuh"
 
 namespace {
 
 using namespace drcvar;
 
+// What a row's results need besides the samples.
+struct RowArgs {
+  int n, k;
+  float inv_n, an, r_combined, delta, eps_over_alpha;
+};
+
+struct RowOutputs {
+  float2* h_mean;
+  float* g_mean;
+  float2* h_ego;
+  float* g_cvar;
+  float* g_drcvar;
+};
+
+// One thread writes a row's outputs from its statistics.  The kernels
+// take the output pointers one by one, each __restrict__, so that the
+// compiler may read the samples through the read-only path.
+template <bool kAllMetrics>
+__device__ __forceinline__ void write_row(
+    float2* __restrict__ h_mean, float* __restrict__ g_mean,
+    float2* __restrict__ h_ego, float* __restrict__ g_cvar,
+    float* __restrict__ g_drcvar, int row, float an, float r_combined,
+    float delta, float eps_over_alpha, float hx, float hy, float mx, float my,
+    float sum_g, int size_g, float v) {
+  const float shift = hx * mx + hy * my;
+  const float cvar =
+      (sum_g + (an - static_cast<float>(size_g)) * v) / an - shift;
+  h_ego[row] = make_float2(hx, hy);
+  g_drcvar[row] = cvar - delta + eps_over_alpha;
+  if constexpr (kAllMetrics) {
+    g_cvar[row] = cvar + r_combined - delta;
+    const float norm_m = sqrtf(mx * mx + my * my);
+    const bool degen_m = norm_m < kEps;
+    const float hmx = degen_m ? 1.f : mx / norm_m;
+    const float hmy = degen_m ? 0.f : my / norm_m;
+    h_mean[row] = make_float2(hmx, hmy);
+    g_mean[row] = -(hmx * mx + hmy * my - r_combined);
+  }
+}
+
+// The warp path: N <= 32 * kVpl <= 1024, one warp a row.  Register r of
+// lane l holds sample 64 (r / 2) + 2 l + (r % 2): the two samples of the
+// lane's 16-byte load j = r / 2.
+template <int kVpl, bool kAllMetrics>
+__global__ void __launch_bounds__(32 * kWarpMaxRows, 2)
+halfspace_warp_kernel(const float2* __restrict__ samples,
+                      const float2* __restrict__ ego,
+                      float2* __restrict__ h_mean, float* __restrict__ g_mean,
+                      float2* __restrict__ h_ego, float* __restrict__ g_cvar,
+                      float* __restrict__ g_drcvar, int rows, bool wide_loads,
+                      RowArgs a) {
+  extern __shared__ int4 hists[];   // 256 counters a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;   // the whole warp; no barrier follows
+  int* hist = reinterpret_cast<int*>(hists) + warp * kBins;
+
+  const float2* s = samples + static_cast<size_t>(row) * a.n;
+  float2 p[kVpl];
+  if (wide_loads) {
+    const float4* s4 = reinterpret_cast<const float4*>(s);
+    const int n4 = a.n >> 1;
+#pragma unroll
+    for (int j = 0; j < kVpl / 2; ++j) {
+      const int i = 32 * j + lane;
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < n4) q = __ldg(s4 + i);
+      p[2 * j] = make_float2(q.x, q.y);
+      p[2 * j + 1] = make_float2(q.z, q.w);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kVpl; ++r) {
+      const int i = 64 * (r >> 1) + 2 * lane + (r & 1);
+      p[r] = i < a.n ? __ldg(s + i) : make_float2(0.f, 0.f);
+    }
+  }
+  const float2 e = ego[row];
+  warp_clear_hist(hist);
+
+  float sx = 0.f;
+  float sy = 0.f;
+#pragma unroll
+  for (int r = 0; r < kVpl; ++r) {
+    if (64 * (r >> 1) + 2 * lane + (r & 1) < a.n) {
+      sx += p[r].x - e.x;
+      sy += p[r].y - e.y;
+    }
+  }
+  const float dx = warp_sum(sx) * a.inv_n;
+  const float dy = warp_sum(sy) * a.inv_n;
+  const float norm = sqrtf(dx * dx + dy * dy);
+  const bool degen = norm < kEps;
+  const float hx = degen ? 1.f : dx / norm;
+  const float hy = degen ? 0.f : dy / norm;
+  const float mx = e.x + dx;
+  const float my = e.y + dy;
+
+  // Keys of the projections; a slot past N holds -inf, below every key.
+  unsigned key[kVpl];
+#pragma unroll
+  for (int r = 0; r < kVpl; ++r) {
+    const bool valid = 64 * (r >> 1) + 2 * lane + (r & 1) < a.n;
+    const float x = (mx - p[r].x) * hx + (my - p[r].y) * hy;
+    key[r] = float_key(valid ? x : __int_as_float(0xff800000));
+  }
+
+  const float v = key_float(warp_kth_largest_key<kVpl>(key, a.k, hist));
+
+  // Tie-safe tail over G = {x >= v}: the tie count cancels.
+  float tail = 0.f;
+  int cnt = 0;
+#pragma unroll
+  for (int r = 0; r < kVpl; ++r) {
+    const float x = key_float(key[r]);
+    if (x >= v) {
+      tail += x;
+      ++cnt;
+    }
+  }
+  const float sum_g = warp_sum(tail);
+  const int size_g = __reduce_add_sync(kFull, cnt);
+  if (lane == 0)
+    write_row<kAllMetrics>(h_mean, g_mean, h_ego, g_cvar, g_drcvar, row, a.an,
+                           a.r_combined, a.delta, a.eps_over_alpha, hx, hy,
+                           mx, my, sum_g, size_g, v);
+}
+
+// The block path: N > 1024, one 256-thread block a row, the projections
+// in shared memory, the block-wide select.
 template <bool kAllMetrics>
 __global__ void __launch_bounds__(kThreads)
-halfspace_kernel(const float2* __restrict__ samples,
-                 const float2* __restrict__ ego,
-                 float2* __restrict__ h_mean, float* __restrict__ g_mean,
-                 float2* __restrict__ h_ego, float* __restrict__ g_cvar,
-                 float* __restrict__ g_drcvar, int n, int k, float inv_n,
-                 float an, float r_combined, float delta,
-                 float eps_over_alpha) {
+halfspace_block_kernel(const float2* __restrict__ samples,
+                       const float2* __restrict__ ego,
+                       float2* __restrict__ h_mean, float* __restrict__ g_mean,
+                       float2* __restrict__ h_ego, float* __restrict__ g_cvar,
+                       float* __restrict__ g_drcvar, int n, int k, float inv_n,
+                       float an, float r_combined, float delta,
+                       float eps_over_alpha) {
   extern __shared__ float xs[];
   __shared__ float red_f[kWarps];
   __shared__ int red_i[kWarps];
@@ -72,7 +232,6 @@ halfspace_kernel(const float2* __restrict__ samples,
 
   const float v = block_kth_largest(xs, n, k, hist, red_i, sel);
 
-  // Tie-safe tail over G = {x >= v}: the tie count cancels.
   float tail = 0.f;
   int cnt = 0;
   for (int i = threadIdx.x; i < n; i += kThreads) {
@@ -85,29 +244,39 @@ halfspace_kernel(const float2* __restrict__ samples,
   const float sum_g = block_sum(tail, red_f);
   const int size_g = block_sum(cnt, red_i);
 
-  if (threadIdx.x == 0) {
-    const float shift = r.hx * r.mx + r.hy * r.my;
-    const float cvar =
-        (sum_g + (an - static_cast<float>(size_g)) * v) / an - shift;
-    h_ego[row] = make_float2(r.hx, r.hy);
-    g_drcvar[row] = cvar - delta + eps_over_alpha;
-    if constexpr (kAllMetrics) {
-      g_cvar[row] = cvar + r_combined - delta;
-      const float norm_m = sqrtf(r.mx * r.mx + r.my * r.my);
-      const bool degen_m = norm_m < kEps;
-      const float hmx = degen_m ? 1.f : r.mx / norm_m;
-      const float hmy = degen_m ? 0.f : r.my / norm_m;
-      h_mean[row] = make_float2(hmx, hmy);
-      g_mean[row] = -(hmx * r.mx + hmy * r.my - r_combined);
-    }
-  }
+  if (threadIdx.x == 0)
+    write_row<kAllMetrics>(h_mean, g_mean, h_ego, g_cvar, g_drcvar, row, an,
+                           r_combined, delta, eps_over_alpha, r.hx, r.hy,
+                           r.mx, r.my, sum_g, size_g, v);
 }
 
-// The select alone on given rows: checks the select bit for bit against
-// a sort-based k-th value on identical inputs.
+// The select alone on given rows [B, N] of floats: checks the select bit
+// for bit against a sort-based k-th value on identical inputs.
+template <int kVpl>
+__global__ void __launch_bounds__(32 * kWarpMaxRows, 2)
+kth_largest_warp_kernel(const float* __restrict__ x, float* __restrict__ out,
+                        int rows, int n, int k) {
+  extern __shared__ int4 hists[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;
+  int* hist = reinterpret_cast<int*>(hists) + warp * kBins;
+  const float* r = x + static_cast<size_t>(row) * n;
+  unsigned key[kVpl];
+#pragma unroll
+  for (int j = 0; j < kVpl; ++j) {
+    const int i = 32 * j + lane;
+    key[j] = float_key(i < n ? __ldg(r + i) : __int_as_float(0xff800000));
+  }
+  warp_clear_hist(hist);
+  const unsigned v = warp_kth_largest_key<kVpl>(key, k, hist);
+  if (lane == 0) out[row] = key_float(v);
+}
+
 __global__ void __launch_bounds__(kThreads)
-kth_largest_kernel(const float* __restrict__ x, float* __restrict__ out,
-                   int n, int k) {
+kth_largest_block_kernel(const float* __restrict__ x, float* __restrict__ out,
+                         int n, int k) {
   extern __shared__ float xs[];
   __shared__ int red_i[kWarps];
   __shared__ int hist[kThreads];
@@ -119,22 +288,88 @@ kth_largest_kernel(const float* __restrict__ x, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
+// The caller's plan of a launch (ops/cuda_kernels.py `halfspace_plan`):
+// values a lane (0: the block path), rows a block and the width of the
+// sample loads in bytes.  The entry points hold it against what the
+// kernels take and refuse the rest.
+struct Plan {
+  int values_per_lane, rows_per_block, load_bytes;
+};
+
+bool warp_plan_fits(const Plan& plan, int n) {
+  return n <= 32 * plan.values_per_lane && plan.rows_per_block >= 1 &&
+         plan.rows_per_block <= kWarpMaxRows;
+}
+
+template <int kVpl, bool kAllMetrics>
+int launch_warp(const float2* samples, const float2* ego,
+                const RowOutputs& out, int rows, const Plan& plan,
+                const RowArgs& a, cudaStream_t stream) {
+  const bool wide = plan.load_bytes == 16;
+  if (!warp_plan_fits(plan, a.n) || (!wide && plan.load_bytes != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wide && ((reinterpret_cast<uintptr_t>(samples) & 15u) || (a.n & 1)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int rpb = plan.rows_per_block;
+  halfspace_warp_kernel<kVpl, kAllMetrics>
+      <<<(rows + rpb - 1) / rpb, 32 * rpb, rpb * kBins * sizeof(int),
+         stream>>>(samples, ego, out.h_mean, out.g_mean, out.h_ego,
+                   out.g_cvar, out.g_drcvar, rows, wide, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls f(std::integral_constant<int, V>()) for the instantiated number
+// of values a lane V == values_per_lane; refuses any other.
+template <typename F>
+int with_values_per_lane(int values_per_lane, F&& f) {
+  switch (values_per_lane) {
+    case 2:
+      return f(std::integral_constant<int, 2>());
+    case 4:
+      return f(std::integral_constant<int, 4>());
+    case 8:
+      return f(std::integral_constant<int, 8>());
+    case 16:
+      return f(std::integral_constant<int, 16>());
+    case 32:
+      return f(std::integral_constant<int, 32>());
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <bool kAllMetrics>
-int launch_halfspace(const void* samples, const void* ego, void* h_mean,
-                     void* g_mean, void* h_ego, void* g_cvar, void* g_drcvar,
-                     int rows, int n, int k, float inv_n, float an,
-                     float r_combined, float delta, float eps_over_alpha,
-                     void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  const cudaError_t err = reserve_smem(halfspace_kernel<kAllMetrics>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  halfspace_kernel<kAllMetrics><<<rows, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(samples), static_cast<const float2*>(ego),
-      static_cast<float2*>(h_mean), static_cast<float*>(g_mean),
-      static_cast<float2*>(h_ego), static_cast<float*>(g_cvar),
-      static_cast<float*>(g_drcvar), n, k, inv_n, an, r_combined, delta,
-      eps_over_alpha);
+int launch_halfspace(const void* samples_, const void* ego_,
+                     const RowOutputs& out, int rows, const Plan& plan,
+                     const RowArgs& a, void* stream_) {
+  const float2* samples = static_cast<const float2*>(samples_);
+  const float2* ego = static_cast<const float2*>(ego_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (plan.values_per_lane == 0) {   // the block path
+    const size_t smem = static_cast<size_t>(a.n) * sizeof(float);
+    const cudaError_t err =
+        reserve_smem(halfspace_block_kernel<kAllMetrics>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    halfspace_block_kernel<kAllMetrics><<<rows, kThreads, smem, stream>>>(
+        samples, ego, out.h_mean, out.g_mean, out.h_ego, out.g_cvar,
+        out.g_drcvar, a.n, a.k, a.inv_n, a.an, a.r_combined, a.delta,
+        a.eps_over_alpha);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return with_values_per_lane(plan.values_per_lane, [&](auto values) {
+    return launch_warp<decltype(values)::value, kAllMetrics>(
+        samples, ego, out, rows, plan, a, stream);
+  });
+}
+
+template <int kVpl>
+int launch_kth_warp(const float* x, float* out, int rows, int n, int k,
+                    const Plan& plan, cudaStream_t stream) {
+  if (!warp_plan_fits(plan, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rpb = plan.rows_per_block;
+  kth_largest_warp_kernel<kVpl>
+      <<<(rows + rpb - 1) / rpb, 32 * rpb, rpb * kBins * sizeof(int),
+         stream>>>(x, out, rows, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,32 +378,50 @@ int launch_halfspace(const void* samples, const void* ego, void* h_mean,
 extern "C" int drcvar_all_metrics_halfspaces(
     const void* samples, const void* ego, void* h_mean, void* g_mean,
     void* h_ego, void* g_cvar, void* g_drcvar, int rows, int n, int k,
-    float inv_n, float an, float r_combined, float delta,
-    float eps_over_alpha, void* stream) {
-  return launch_halfspace<true>(samples, ego, h_mean, g_mean, h_ego, g_cvar,
-                                g_drcvar, rows, n, k, inv_n, an, r_combined,
-                                delta, eps_over_alpha, stream);
+    int values_per_lane, int rows_per_block, int load_bytes, float inv_n,
+    float an, float r_combined, float delta, float eps_over_alpha,
+    void* stream) {
+  const RowOutputs out = {static_cast<float2*>(h_mean),
+                          static_cast<float*>(g_mean),
+                          static_cast<float2*>(h_ego),
+                          static_cast<float*>(g_cvar),
+                          static_cast<float*>(g_drcvar)};
+  return launch_halfspace<true>(
+      samples, ego, out, rows, {values_per_lane, rows_per_block, load_bytes},
+      {n, k, inv_n, an, r_combined, delta, eps_over_alpha}, stream);
 }
 
 extern "C" int drcvar_fused_halfspace(const void* samples, const void* ego,
                                       void* h, void* g_tilde, int rows, int n,
-                                      int k, float inv_n, float an,
-                                      float delta, float eps_over_alpha,
-                                      void* stream) {
-  return launch_halfspace<false>(samples, ego, nullptr, nullptr, h, nullptr,
-                                 g_tilde, rows, n, k, inv_n, an, 0.f, delta,
-                                 eps_over_alpha, stream);
+                                      int k, int values_per_lane,
+                                      int rows_per_block, int load_bytes,
+                                      float inv_n, float an, float delta,
+                                      float eps_over_alpha, void* stream) {
+  const RowOutputs out = {nullptr, nullptr, static_cast<float2*>(h), nullptr,
+                          static_cast<float*>(g_tilde)};
+  return launch_halfspace<false>(
+      samples, ego, out, rows, {values_per_lane, rows_per_block, load_bytes},
+      {n, k, inv_n, an, 0.f, delta, eps_over_alpha}, stream);
 }
 
-extern "C" int drcvar_kth_largest(const void* x, void* out, int rows, int n,
-                                  int k, void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  const cudaError_t err = reserve_smem(kth_largest_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kth_largest_kernel<<<rows, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n, k);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int drcvar_kth_largest(const void* x_, void* out_, int rows, int n,
+                                  int k, int values_per_lane,
+                                  int rows_per_block, void* stream_) {
+  const float* x = static_cast<const float*>(x_);
+  float* out = static_cast<float*>(out_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (values_per_lane == 0) {   // the block path
+    const size_t smem = static_cast<size_t>(n) * sizeof(float);
+    const cudaError_t err = reserve_smem(kth_largest_block_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kth_largest_block_kernel<<<rows, kThreads, smem, stream>>>(x, out, n, k);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const Plan plan = {values_per_lane, rows_per_block, 0};
+  return with_values_per_lane(values_per_lane, [&](auto values) {
+    return launch_kth_warp<decltype(values)::value>(x, out, rows, n, k, plan,
+                                                    stream);
+  });
 }
 
 extern "C" const char* drcvar_error_string(int err) {

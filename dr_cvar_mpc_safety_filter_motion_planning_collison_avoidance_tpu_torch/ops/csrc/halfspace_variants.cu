@@ -8,11 +8,15 @@
 //     `minimal`): the DR-CVaR solve with its select swapped out;
 //   * `drcvar_minimal_planes` <- `minimal_planes`: the read floor;
 //   * `drcvar_select_rounds` <- `measure_prod_rounds`: how many passes
-//     of the production select a row needs.
+//     of the block-wide radix select a row needs.
 //
-// Each is one thread block per row, as the production kernel
-// (halfspace_kernels.cu), so the differences between their times
-// attribute the production kernel's time to its stages:
+// Each is one thread block per row, as the block path of the production
+// kernel (halfspace_kernels.cu: its kernel for rows of more than 1024
+// samples, and its only kernel before the warp path existed), so the
+// differences between their times attribute THAT design's time to its
+// stages.  At N <= 1024 the production kernel gives a warp a row and is
+// faster than `nosel` here; the variants then say what a block a row
+// costs, not where the production kernel's time goes:
 //
 //   nosel       pre-select stages, CVaR := mean(x) - shift;
 //   prod_nosel  pre-select stages + sigma = sqrt(sum x^2 / N),
@@ -33,15 +37,16 @@
 // arithmetic exactly (span / 3, lo + third + 1, lo + 2 third + 1).
 //
 // `select_rounds` returns, per row, the first pass p in {1, 2, 3, 4} of
-// the production 4-pass radix select after which every key sharing the
+// the block path's 4-pass radix select after which every key sharing the
 // k-th key's top 8p bits equals the k-th key: the passes the row needed,
-// and so the room an early exit would have.  Its pre-select stage
+// and so the room an early exit has (the warp path takes it where the
+// chosen bin holds one key).  Its pre-select stage
 // rounds every product and sum on its own (no contraction into FMAs) in
 // the fixed order of `block_reduce`, so that its plain version can
 // reproduce the projections, and hence the pass counts, bit for bit.
 //
-// What bounds them on this card: as the production kernel, the latency
-// of block-wide barriers; `minimal` reads each sample once and makes two
+// What bounds them on this card: as the block path, the latency of
+// block-wide barriers; `minimal` reads each sample once and makes two
 // block sums, so its time is the floor set by device-memory bandwidth
 // and the one-block-per-row launch.
 
@@ -185,7 +190,7 @@ variant_kernel(const float2* __restrict__ samples,
 }
 
 // Pre-select stage with every operation rounded on its own, in the
-// fixed order of block_reduce (see the file note), then the production
+// fixed order of block_reduce (see the file note), then the block path's
 // select with its per-pass counts.
 __global__ void __launch_bounds__(kThreads)
 select_rounds_kernel(const float2* __restrict__ samples,

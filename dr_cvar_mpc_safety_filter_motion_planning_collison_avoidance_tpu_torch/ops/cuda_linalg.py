@@ -100,20 +100,6 @@ def _describe(t: torch.Tensor):
     return t.device.type, t.dtype, tuple(t.shape), t.stride()
 
 
-def _launch(entry: str, device, *args) -> None:
-    """Call a C entry point on PyTorch's current stream of `device` and
-    raise on its CUDA error.  The device is switched only when it is not
-    the current one: the context manager costs more host time than the
-    kernels take on the card."""
-    fn = getattr(_build.load().lib, entry)
-    if device.index in (None, torch.cuda.current_device()):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, entry)
-
-
 def solve_warp_max_k() -> int:
     """The most right-hand sides the warp-a-matrix solve kernel takes;
     above it a thread owns a right-hand side (builds the kernels)."""
@@ -129,8 +115,8 @@ def batched_cholesky(S):
     L = torch.empty_like(S)
     if B == 0 or n == 0:
         return L
-    _launch("drcvar_batched_cholesky", S.device, S.data_ptr(), L.data_ptr(),
-            B, n)
+    _build.launch("drcvar_batched_cholesky", S.device, S.data_ptr(),
+                  L.data_ptr(), B, n)
     batched_cholesky.launches += 1
     return L
 
@@ -149,8 +135,8 @@ def batched_cho_solve(L, r):
     x = torch.empty_like(r)
     if B == 0 or n == 0:
         return x
-    _launch("drcvar_batched_cho_solve", L.device, L.data_ptr(), r.data_ptr(),
-            x.data_ptr(), B, n, k)
+    _build.launch("drcvar_batched_cho_solve", L.device, L.data_ptr(),
+                  r.data_ptr(), x.data_ptr(), B, n, k)
     batched_cho_solve.launches += 1
     return x
 

@@ -5,8 +5,10 @@ Port of the Pallas kernels of the JAX package's kernel benchmark
 (`drcvar_variant`), the read floor `minimal_planes`, and the select's
 round count `measure_prod_rounds` (`select_rounds`).  The kernel source
 is `csrc/halfspace_variants.cu`; its header says what each variant
-computes, what bounds it on an H100 and how it is designed.  The
-benchmark harness is `experiments/kbench.py` of this package.
+computes, what bounds it on an H100 and how it is designed: one thread
+block per row, which is the production kernel's design only for rows of
+more than 1024 samples.  The benchmark harness is `experiments/kbench.py`
+of this package.
 
 Each wrapper dispatches on the samples' device: on the CPU it runs the
 plain PyTorch form, which follows the JAX kernels' arithmetic (any float
@@ -22,7 +24,8 @@ import torch
 
 from ..core.risk import cvar_k
 from . import _build
-from .cuda_kernels import _check_rows, fused_drcvar_halfspace
+from .cuda_kernels import (_check_rows, float_keys,
+                           fused_drcvar_halfspace)
 from .halfspace import Halfspace, dr_cvar_halfspace
 
 # The constants `kbench.fused` hard-codes: alpha, delta, epsilon, r~.
@@ -35,18 +38,12 @@ _CODES = {"nosel": (0, 0), "prod_nosel": (1, 0), "r3": (2, 22),
 _MINIMAL_PLANES = 5
 
 
-def _keys(x):
-    """Monotone float32 -> uint32 key map, as int64 in [0, 2^32)."""
-    u = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u ^ 0x80000000)
-
-
 def _select_bisect(x, k: int, alpha: float, rounds: int, early_exit: bool):
     """The TPU's `_select_r3` / `_select_fixed`: 3-ary bisection on the
     keys between the row's min and max key, then the strict-greater
     tail at v = min{x : key >= lo}."""
     n = x.shape[-1]
-    keys = _keys(x)
+    keys = float_keys(x)
     lo, hi = keys.amin(-1), keys.amax(-1)
     c_lo = torch.full_like(lo, n)
     for _ in range(rounds):
@@ -206,7 +203,7 @@ def _block_sum_order(v):
 
 
 def select_rounds_plain(samples, ego, alpha: float):
-    """Passes of the 4-pass radix select each row needs, from the
+    """Passes of the block-wide 4-pass radix select each row needs, from the
     kernel's projections rebuilt bit for bit (float32, every operation
     rounded on its own, the kernel's summation order)."""
     s = samples.to(torch.float32)
@@ -220,7 +217,7 @@ def select_rounds_plain(samples, ego, alpha: float):
     mx, my = ex[:, 0] + dx, ey[:, 0] + dy
     x = ((mx[:, None] - s[..., 0]) * hx[:, None]
          + (my[:, None] - s[..., 1]) * hy[:, None])
-    keys = _keys(x)
+    keys = float_keys(x)
     k = cvar_k(n, alpha)
     kth = torch.kthvalue(keys, n - k + 1, dim=-1).values
     counts = torch.stack([((keys >> sh) == (kth >> sh)[:, None]).sum(-1)
@@ -230,7 +227,7 @@ def select_rounds_plain(samples, ego, alpha: float):
 
 
 def select_rounds(samples, ego, alpha: float):
-    """Per row, the first pass p in {1, 2, 3, 4} of the production radix
+    """Per row, the first pass p in {1, 2, 3, 4} of the block-wide radix
     select after which every key sharing the k-th key's top 8p bits is
     the k-th key: int32 [B].  (The TPU function counts the rounds of the
     TPU's own select, which differs by design.)"""

@@ -36,8 +36,13 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.parametrize("B,N", [(2304, 1000), (7, 20), (5, 4096),
-                                 (13, 1001)])
+# Both sides of the warp path's limit (1024 / 1025), odd N (8-byte loads),
+# every number of values a lane, B off the rows-a-block multiple.
+GRID = [(2304, 1000), (7, 20), (5, 4096), (13, 1001), (9, 1024), (6, 1025),
+        (10, 999), (3, 1), (5, 64), (5, 65), (7, 130), (6, 300), (1, 513)]
+
+
+@pytest.mark.parametrize("B,N", GRID)
 def test_all_metrics_kernel_matches_plain(cuda, B, N):
     gen = torch.Generator(device=cuda).manual_seed(B)
     x = 2.0 + 0.1 * torch.randn(B, N, 2, device=cuda, generator=gen)
@@ -55,15 +60,21 @@ def test_all_metrics_kernel_matches_plain(cuda, B, N):
 
 
 @pytest.mark.parametrize("N,k", [(1000, 200), (20, 4), (4096, 820),
-                                 (64, 64), (33, 1)])
+                                 (64, 64), (33, 1), (1024, 205), (1024, 1),
+                                 (1024, 1024), (1025, 205), (999, 999),
+                                 (1, 1), (129, 26), (300, 60), (600, 1)])
 def test_select_bit_equal_to_kthvalue(cuda, N, k):
     gen = torch.Generator(device=cuda).manual_seed(N)
-    x = torch.randn(64, N, device=cuda, generator=gen)
+    x = torch.randn(67, N, device=cuda, generator=gen)
     x[:8] = torch.round(x[:8])                # heavy ties, signed zeros
     x[8:16] = x[8:16, :1]                     # constant rows
+    x[16:20] = 1e38 * x[16:20]                # some overflow to +-inf
     v = ck.kth_largest(x, k)
     ref = torch.kthvalue(x, N - k + 1, dim=-1).values
     assert torch.equal(v, ref)                # -0.0 == +0.0
+    replay, passes = ck.radix_select_plain(x, k)
+    assert torch.equal(v, replay)
+    assert 1 <= int(passes.min()) and int(passes.max()) <= 4
 
 
 @pytest.mark.parametrize("n", [60, 64, 17])
@@ -218,8 +229,7 @@ def _rows(cuda, B, N, seed):
     return x, 0.1 * torch.randn(B, 2, device=cuda, generator=gen)
 
 
-@pytest.mark.parametrize("B,N", [(2304, 1000), (7, 20), (5, 4096),
-                                 (1, 1000), (13, 1001)])
+@pytest.mark.parametrize("B,N", GRID + [(1, 1000)])
 def test_drcvar_kernel_bit_equal_to_all_metrics(cuda, B, N):
     x, ego = _rows(cuda, B, N, B + N)
     before = ck.fused_drcvar_halfspace.launches
@@ -231,6 +241,55 @@ def test_drcvar_kernel_bit_equal_to_all_metrics(cuda, B, N):
     plain = ck.fused_drcvar_halfspace_plain(x, ego, *ARGS)
     torch.testing.assert_close(h, plain.h, atol=1e-5, rtol=0)
     torch.testing.assert_close(g, plain.g_tilde, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,N", [(9, 1000), (6, 20), (5, 300)])
+def test_misaligned_view_takes_the_8_byte_loads(cuda, B, N):
+    """A contiguous view that starts 8 bytes into its storage: the plan
+    gives it 8-byte loads, whose results are bit-equal to the 16-byte
+    loads' on the same rows (a lane holds the same samples either way)."""
+    x, ego = _rows(cuda, B, N, N)
+    flat = torch.empty(x.numel() + 2, device=cuda)
+    view = flat[2:].view_as(x).copy_(x)
+    assert view.data_ptr() % 16 == 8 and view.is_contiguous()
+    assert ck.halfspace_plan(B, N, False).load_bytes == 8
+    assert ck.halfspace_plan(B, N, x.data_ptr() % 16 == 0).load_bytes == 16
+    for fn in (ck.all_metrics_halfspaces, ck.fused_drcvar_halfspace):
+        for a, b in zip(fn(view, ego, *ARGS), fn(x, ego, *ARGS)):
+            assert torch.equal(a, b)
+    plain = ck.all_metrics_halfspaces_plain(x, ego, *ARGS)
+    out = ck.all_metrics_halfspaces(view, ego, *ARGS)
+    torch.testing.assert_close(out.h, plain.h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.g_drcvar, plain.g_drcvar, atol=2e-4,
+                               rtol=1e-5)
+
+
+def test_entry_points_refuse_a_plan_the_kernels_do_not_take(cuda):
+    """The C entry points hold the plan against the rows: too few values
+    a lane, 16-byte loads on an odd N or a misaligned start, a block of
+    more than 8 rows."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        _build)
+    x, ego = _rows(cuda, 4, 100, 0)
+    odd, _ = _rows(cuda, 4, 99, 0)
+    out = [torch.empty(8, device=cuda) for _ in range(5)]
+    lib = _build.load().lib
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(samples, n, values, rows, load):
+        return lib.drcvar_all_metrics_halfspaces(
+            samples.data_ptr(), ego.data_ptr(), *(t.data_ptr() for t in out),
+            4, n, 20, values, rows, load, 1.0 / n, 0.2 * n, 0.6, 0.1, 0.75,
+            stream)
+
+    assert call(x, 100, 4, 4, 16) == 0
+    assert call(x, 100, 2, 4, 16) != 0          # 64 values hold no 100
+    assert call(x, 100, 3, 4, 16) != 0          # no such instantiation
+    assert call(x, 100, 4, 9, 16) != 0          # more than 8 rows a block
+    assert call(x, 100, 4, 4, 4) != 0           # no such load
+    assert call(odd, 99, 4, 4, 16) != 0         # odd N: rows not aligned
+    assert call(odd, 99, 4, 4, 8) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("variant", ["prod_nosel", "nosel", "r3", "fixed12",
