@@ -22,18 +22,19 @@ is non-zero):
      with its roofline bound; for the batched Cholesky and solve also
      the device time as a CUDA graph of launches, the one PyTorch call
      for the same function, a grid of sizes, matrices that are not
-     positive definite and the systems of a real IPM run; then the
-     kernel benchmark's attribution lines (launch counts from 0);
+     positive definite and the systems of a real IPM run; the kernel
+     benchmark's variants also on a grid of N across both of their
+     paths; then the kernel benchmark's attribution lines (launch counts
+     from 0);
   4. seeded end to end: the reference's seed-42 streams (N = 20);
   5. the batch run, with its launch counts, checks and wall time;
   6. the entry points: Monte Carlo (twice from one seed, launch counts
      from 0, a CPU float64 re-run of its first runs) and the timing
      sweep.
-The line before the last is the kernels' JSON record (for the two
-halfspace kernels and the batched Cholesky and solve `ms` is the device
-time as a CUDA graph of launches and `wrapper_ms` the time launch by
-launch; the solve's top-level numbers are k = 1's and `k65` holds
-k = 65's); the last line is
+The line before the last is the kernels' JSON record (for every kernel
+but `minimal_planes` `ms` is the device time as a CUDA graph of launches
+and `wrapper_ms` the time launch by launch; the solve's top-level numbers
+are k = 1's and `k65` holds k = 65's); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -98,10 +99,10 @@ def plain_vs_kernel_ms(plain, kernel, reps: int):
 def graph_and_wrapper_ms(pt, plain, kernel, reps: int):
     """(device ms as a CUDA graph of launches, ms launch by launch, plain
     ms): the graph timed twice around the turns of `plain_vs_kernel_ms`."""
-    lb = pt.experiments.linalg_bench
-    first = lb.graph_ms(kernel)
+    graph_ms = pt.experiments.kbench.graph_ms
+    first = graph_ms(kernel)
     wrapper_ms, plain_ms = plain_vs_kernel_ms(plain, kernel, reps)
-    return (first + lb.graph_ms(kernel)) / 2, wrapper_ms, plain_ms
+    return (first + graph_ms(kernel)) / 2, wrapper_ms, plain_ms
 
 
 def check_close(names, out, ref, label, exact=False):
@@ -261,7 +262,7 @@ def phase_linalg(pt, torch, dev, streams, gen):
     matrices that are not positive definite, and the systems of a real
     IPM run.  Returns their entries of the kernels' record."""
     cl = pt.ops.cuda_linalg
-    lb = pt.experiments.linalg_bench
+    lb, kb = pt.experiments.linalg_bench, pt.experiments.kbench
     f32 = dict(dtype=torch.float32, device=dev)
 
     def spd(B, n):
@@ -308,8 +309,8 @@ def phase_linalg(pt, torch, dev, streams, gen):
                           lb.cho_solve_bound_ms(B, n, k)))
         for name, k, kernel, plain, library, (bound, bound_by) in cases:
             wrapper_ms, plain_ms = plain_vs_kernel_ms(plain, kernel, reps=20)
-            graph_ms = (lb.graph_ms(kernel) + lb.graph_ms(kernel)) / 2
-            library_ms = lb.cuda_ms(library, 20)
+            graph_ms = (kb.graph_ms(kernel) + kb.graph_ms(kernel)) / 2
+            library_ms = kb.cuda_ms(library, 20)
             what = name + ("" if k is None else f" k={k}")
             print(f"[kernels] {what} [{B}, {n}, {n}]: {graph_ms:.4f} ms as a "
                   f"CUDA graph of launches, {wrapper_ms:.4f} ms launch by "
@@ -544,7 +545,19 @@ def phase_kernels(pt, torch, dev, streams):
     print(f"[kernels] fused_drcvar_halfspace B={rows.shape[0]} "
           f"N={rows.shape[1]}: (h, g) bit-equal to all_metrics_halfspaces' "
           f"(h, g_drcvar)")
-    del rows, ego, out, ref
+    # Kernel 7 on the same rows: equal to its plain version row by row,
+    # so its mean is the mean of the production select's replayed passes.
+    cv = pt.ops.cuda_variants
+    passes = cv.select_rounds(rows, ego, ARGS[0])
+    passes_ref = cv.select_rounds_plain(rows, ego, ARGS[0])
+    gate(torch.equal(passes, passes_ref), "select_rounds on the batch rows: "
+         f"differs from plain on {int((passes != passes_ref).sum())} rows")
+    gate(float(passes.float().mean()) == float(passes_ref.float().mean()),
+         "select_rounds on the batch rows: mean differs from the replay's")
+    print(f"[kernels] select_rounds B={rows.shape[0]} N={rows.shape[1]}: "
+          f"equal to radix_select_plain's passes on its own projections on "
+          f"every row, mean {float(passes.float().mean()):.3f} of 4")
+    del rows, ego, out, ref, passes, passes_ref
     kb = pt.experiments.kbench
     err4 = 0.0
     for B, N in DRCVAR_SHAPES:
@@ -567,24 +580,36 @@ def phase_kernels(pt, torch, dev, streams):
     record["fused_drcvar_halfspace"]["max_abs_err"] = err4
 
     # Kernels 5-7 at the kernel benchmark's shape.
-    cv = pt.ops.cuda_variants
     x, e = kb.make_inputs(kb.BATCH, kb.N_SAMPLES, dev)
+    plan = ck.halfspace_plan(*x.shape[:2], x.data_ptr() % 16 == 0)
+    print(f"[kernels] drcvar_variant / select_rounds B={kb.BATCH} "
+          f"N={kb.N_SAMPLES} run as {plan}")
+    prod = cv.drcvar_variant(x, e, "prod")
     err5 = 0.0
     for v in cv.VARIANTS[1:]:
-        err = check_hg(cv.drcvar_variant(x, e, v),
-                       cv.drcvar_variant_plain(x, e, v), f"variant {v}")
+        out = cv.drcvar_variant(x, e, v)
+        err = check_hg(out, cv.drcvar_variant_plain(x, e, v), f"variant {v}")
         err5 = max(err5, err)
-        k_ms, p_ms = plain_vs_kernel_ms(
-            lambda: cv.drcvar_variant_plain(x, e, v),
+        if v in ("r3", "fixed22"):
+            # Both bisect to the exact k-th value: the production solve
+            # to float32 rounding.
+            check_hg(out, prod, f"variant {v} against prod")
+        k_ms, w_ms, p_ms = graph_and_wrapper_ms(
+            pt, lambda: cv.drcvar_variant_plain(x, e, v),
             lambda: cv.drcvar_variant(x, e, v), reps=3)
         print(f"[kernels] drcvar_variant {v} B={kb.BATCH} N={kb.N_SAMPLES}: "
-              f"max_abs_err {err:.3e}, {k_ms:.4f} ms (plain {p_ms:.4f} ms)")
+              f"max_abs_err {err:.3e}, {k_ms:.4f} ms as a CUDA graph of "
+              f"launches, {w_ms:.4f} ms launch by launch (plain {p_ms:.4f} "
+              f"ms)")
         if v == "r3":
-            # r3's bisection stops early; its bound counts the most
-            # rounds it can take, and is still the bytes'.
+            # r3's bisection stops early: its bound counts the rounds
+            # this run's rows need (and is still the bytes').
+            moved = cv.bisect_rounds_plain(x, e).float()
+            print(f"[kernels] drcvar_variant r3: rounds a row mean "
+                  f"{float(moved.mean()):.3f} max {int(moved.max())} of 22")
             record["drcvar_variant"] = halfspace_entry(
-                pt, err, k_ms, p_ms, (x, e, *cv.drcvar_variant(x, e, v)),
-                FLOPS_PER_SAMPLE, 22)
+                pt, err, k_ms, p_ms, (x, e, *out), FLOPS_PER_SAMPLE,
+                float(moved.mean()), w_ms)
     record["drcvar_variant"]["max_abs_err"] = err5
     err6 = check_hg(cv.minimal_planes(x, e), cv.minimal_planes_plain(x, e),
                     "minimal_planes")
@@ -596,22 +621,59 @@ def phase_kernels(pt, torch, dev, streams):
     rounds_ref = cv.select_rounds_plain(x, e, ARGS[0])
     gate(torch.equal(rounds, rounds_ref), "select_rounds: differs from plain "
          f"on {int((rounds != rounds_ref).sum())} rows")
+    k_ms, w_ms, p_ms = graph_and_wrapper_ms(
+        pt, lambda: cv.select_rounds_plain(x, e, ARGS[0]),
+        lambda: cv.select_rounds(x, e, ARGS[0]), reps=3)
     record["select_rounds"] = halfspace_entry(
-        pt, float((rounds - rounds_ref).abs().max()), *plain_vs_kernel_ms(
-            lambda: cv.select_rounds_plain(x, e, ARGS[0]),
-            lambda: cv.select_rounds(x, e, ARGS[0]), reps=3),
-        (x, e, rounds), FLOPS_PER_SAMPLE, float(rounds.float().mean()))
-    for name in ("minimal_planes", "select_rounds"):
-        print(f"[kernels] {name} B={kb.BATCH} N={kb.N_SAMPLES}: max_abs_err "
-              f"{record[name]['max_abs_err']:.3e}, {record[name]['ms']:.4f} "
-              f"ms (plain {record[name]['plain_ms']:.4f} ms)")
+        pt, float((rounds - rounds_ref).abs().max()), k_ms, p_ms,
+        (x, e, rounds), FLOPS_PER_SAMPLE, float(rounds.float().mean()), w_ms)
+    print(f"[kernels] minimal_planes B={kb.BATCH} N={kb.N_SAMPLES}: "
+          f"max_abs_err {err6:.3e}, {record['minimal_planes']['ms']:.4f} ms "
+          f"(plain {record['minimal_planes']['plain_ms']:.4f} ms)")
+    print(f"[kernels] select_rounds B={kb.BATCH} N={kb.N_SAMPLES}: equal to "
+          f"its plain version on every row (mean "
+          f"{float(rounds.float().mean()):.3f} of 4 passes), {k_ms:.4f} ms "
+          f"as a CUDA graph of launches, {w_ms:.4f} ms launch by launch "
+          f"(plain {p_ms:.4f} ms)")
+    del x, e, prod, out, rounds, rounds_ref
+    # Every variant and select_rounds on every number of values a lane,
+    # both sides of the warp path's limit, an odd N (8-byte loads), rows of
+    # repeated samples and constant rows, and a view that starts 8 bytes
+    # into its storage: bit-equal to the aligned rows' results.
+    grid = (20, 64, 65, 999, 1000, 1024, 1025, 4096)
+    for N in grid:
+        B = 67
+        x = 0.5 + 0.1 * torch.randn(B, N, 2, generator=gen, **f32)
+        x[:4] = torch.round(x[:4] * 4) / 4
+        x[4:8] = x[4:8, :1]
+        e = 0.1 * torch.randn(B, 2, generator=gen, **f32)
+        view = torch.empty(x.numel() + 2, **f32)[2:].view_as(x).copy_(x)
+        gate(view.data_ptr() % 16 == 8, "misaligned view: is aligned")
+        for v in cv.VARIANTS[1:]:
+            out = cv.drcvar_variant(x, e, v)
+            check_hg(out, cv.drcvar_variant_plain(x, e, v),
+                     f"variant {v} N={N}")
+            check_hg(cv.drcvar_variant(view, e, v), out,
+                     f"variant {v} N={N} misaligned view", exact=True)
+        rounds = cv.select_rounds(x, e, ARGS[0])
+        gate(torch.equal(rounds, cv.select_rounds_plain(x, e, ARGS[0])),
+             f"select_rounds N={N}: differs from plain")
+        gate(torch.equal(rounds, cv.select_rounds(view, e, ARGS[0])),
+             f"select_rounds N={N}: a misaligned view differs")
+        want = 4 if N <= ck.WARP_MAX_N else 1    # every key tied
+        gate(rounds[4:8].tolist() == [want] * 4,
+             f"select_rounds N={N}: constant rows give {rounds[4:8].tolist()}")
+    torch.cuda.synchronize()
+    print(f"[kernels] variants and select_rounds at N = "
+          f"{', '.join(map(str, grid))}: within tolerance of / equal to their "
+          f"plain versions, a misaligned view bit-equal; constant rows run 4 "
+          f"passes on the warp path (N <= {ck.WARP_MAX_N})")
     for name, entry in record.items():
         print(f"[kernels] {name}: bound {entry['bound_ms']:.4f} ms by "
               f"{entry['bound_by']}, {entry['bound_ms'] / entry['ms']:.1%} "
               f"of it reached")
     print(f"[kernels] variants within h {H_TOL}, g {G_ATOL} + {G_RTOL} rel; "
           "select_rounds equal to its plain version on every row")
-    del x, e
     return record
 
 

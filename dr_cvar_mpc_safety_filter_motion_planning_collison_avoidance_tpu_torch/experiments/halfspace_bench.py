@@ -13,9 +13,15 @@ the row fits a warp, under other plans: the block path forced, 1, 2 and
 `ops/cuda_kernels.py` are set from these lines.  `--baseline` names
 another version of the source (an earlier one, with its own C interface:
 a source without a `values_per_lane` argument is called without a plan)
-to be built and timed in the same process, on the same card; `--probe`
-does the same for a source whose results are not expected to be right
-(a kernel with a phase cut out, to see what the phase costs).
+to be built and timed in the same process, on the same card, and says
+for each shape whether its outputs equal this version's bit for bit;
+`--probe` does the same for a source whose results are not expected to
+be right.  The compiler looks for a quoted include beside the including
+file first, so a baseline that needs its own commit's headers finds them
+when they are saved beside it (`git show <commit>:<path>` for the source
+and each `.cuh`, into one directory under `build/`).  What a phase of
+the kernel costs is read from the kernel benchmark's variants
+(`experiments/kbench.py`), which are the kernel with a stage swapped.
 
 Each version is timed as a CUDA graph of REPS launches replayed under
 CUDA events (device time, no host in the way); the wrappers are timed
@@ -40,8 +46,8 @@ import torch
 
 from ..core.risk import cvar_k
 from ..ops import _build, cuda_kernels as ck
-from .kbench import cuda_ms, make_inputs
-from .linalg_bench import graph_ms, in_turns, roofline_ms
+from .kbench import cuda_ms, graph_ms, make_inputs
+from .linalg_bench import in_turns, roofline_ms
 
 SHAPES = ((23040, 1000), (32768, 1000), (9000, 20), (8192, 4096),
           (4099, 999))
@@ -126,11 +132,13 @@ def _fmt(times: dict) -> str:
 
 
 def print_ptxas(log: str) -> None:
-    """Registers and spills of the halfspace kernels, from nvcc's log."""
+    """Registers and spills of the halfspace kernels and their variants,
+    from nvcc's log."""
     keep = False
     for line in log.splitlines():
         if "Compiling entry" in line:
-            keep = "halfspace_" in line or "kth_largest" in line
+            keep = any(part in line for part in (
+                "halfspace_", "kth_largest", "variant_", "select_rounds"))
         if keep and ("Compiling entry" in line or "registers" in line
                      or "spill" in line):
             print(f"[ptxas] {line.strip()}")
@@ -201,6 +209,12 @@ def main(argv=None) -> dict:
                 if name not in unchecked:
                     _check(f"{what} {name} {B} x {N}", all_metrics,
                            outs[name], ref)
+            for name in others:
+                if name not in unchecked:
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        outs[name], outs["kernel"]))
+                    print(f"[equal] {what} {B} x {N}: {name} bit-equal to "
+                          f"kernel: {same}", flush=True)
             device = in_turns(graph_ms, launches)
             wrapper = (ck.all_metrics_halfspaces if all_metrics
                        else ck.fused_drcvar_halfspace)

@@ -36,7 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..ops import _build, cuda_linalg as cl
-from .kbench import cuda_ms
+from .kbench import cuda_ms, graph_ms
 
 BATCH = 768
 SIZES = (60, 64, 62)
@@ -64,26 +64,6 @@ def roofline_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     by_flops = flops / PEAK_FLOPS * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_flops
             else (by_flops, "operations"))
-
-
-def graph_ms(launch, reps: int = REPS) -> float:
-    """Device ms per launch: `reps` launches captured in one CUDA graph,
-    replayed once to warm up and once under events."""
-    launch()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            launch()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def in_turns(timer, launches: dict) -> dict:

@@ -35,8 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "drcvar_all_metrics_halfspaces": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P],
     "drcvar_fused_halfspace": [_P] * 4 + [_I] * 6 + [_F] * 4 + [_P],
-    "drcvar_variant": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_P],
-    "drcvar_select_rounds": [_P] * 3 + [_I] * 3 + [_F, _P],
+    "drcvar_variant": [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P],
+    "drcvar_select_rounds": [_P] * 3 + [_I] * 6 + [_F, _P],
     "drcvar_kth_largest": [_P, _P] + [_I] * 5 + [_P],
     "drcvar_batched_cholesky": [_P, _P, _I, _I, _P],
     "drcvar_batched_cho_solve": [_P, _P, _P, _I, _I, _I, _P],

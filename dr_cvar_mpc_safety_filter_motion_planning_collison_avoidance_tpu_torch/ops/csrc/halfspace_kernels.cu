@@ -62,6 +62,10 @@
 //     instruction rate, not the loads, sets the kernel's time (a variant
 //     that prefetched a warp's next row into shared memory while it
 //     selected was slower on an H100).
+//   * The row body is the stages of halfspace_warp.cuh (load, centred
+//     statistics, keys, select, tail).  The kernel benchmark's variants
+//     (halfspace_variants.cu) instantiate the same stages with one of
+//     them swapped, so their times say where this kernel's time goes.
 //
 // Rows of more than 1024 samples (up to 49152, the block path) keep one
 // 256-thread block a row with the projections in shared memory and the
@@ -70,9 +74,6 @@
 //
 // Samples are read as [B, N, 2] float2 directly: the TPU's SoA planes
 // and its 128-lane / row-tile padding are layout, not contract.
-
-#include <cstdint>
-#include <type_traits>
 
 #include "halfspace_warp.cuh"
 
@@ -120,9 +121,10 @@ __device__ __forceinline__ void write_row(
   }
 }
 
-// The warp path: N <= 32 * kVpl <= 1024, one warp a row.  Register r of
-// lane l holds sample 64 (r / 2) + 2 l + (r % 2): the two samples of the
-// lane's 16-byte load j = r / 2.
+// The warp path: N <= 32 * kVpl <= 1024, one warp a row, the stages of
+// halfspace_warp.cuh at their production values.  Register r of lane l
+// holds sample 64 (r / 2) + 2 l + (r % 2): the two samples of the lane's
+// 16-byte load j = r / 2.
 template <int kVpl, bool kAllMetrics>
 __global__ void __launch_bounds__(32 * kWarpMaxRows, 2)
 halfspace_warp_kernel(const float2* __restrict__ samples,
@@ -138,75 +140,26 @@ halfspace_warp_kernel(const float2* __restrict__ samples,
   if (row >= rows) return;   // the whole warp; no barrier follows
   int* hist = reinterpret_cast<int*>(hists) + warp * kBins;
 
-  const float2* s = samples + static_cast<size_t>(row) * a.n;
   float2 p[kVpl];
-  if (wide_loads) {
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-    const int n4 = a.n >> 1;
-#pragma unroll
-    for (int j = 0; j < kVpl / 2; ++j) {
-      const int i = 32 * j + lane;
-      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < n4) q = __ldg(s4 + i);
-      p[2 * j] = make_float2(q.x, q.y);
-      p[2 * j + 1] = make_float2(q.z, q.w);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < kVpl; ++r) {
-      const int i = 64 * (r >> 1) + 2 * lane + (r & 1);
-      p[r] = i < a.n ? __ldg(s + i) : make_float2(0.f, 0.f);
-    }
-  }
+  warp_load_row<kVpl>(samples + static_cast<size_t>(row) * a.n, a.n,
+                      wide_loads, lane, p);
   const float2 e = ego[row];
   warp_clear_hist(hist);
 
-  float sx = 0.f;
-  float sy = 0.f;
-#pragma unroll
-  for (int r = 0; r < kVpl; ++r) {
-    if (64 * (r >> 1) + 2 * lane + (r & 1) < a.n) {
-      sx += p[r].x - e.x;
-      sy += p[r].y - e.y;
-    }
-  }
-  const float dx = warp_sum(sx) * a.inv_n;
-  const float dy = warp_sum(sy) * a.inv_n;
-  const float norm = sqrtf(dx * dx + dy * dy);
-  const bool degen = norm < kEps;
-  const float hx = degen ? 1.f : dx / norm;
-  const float hy = degen ? 0.f : dy / norm;
-  const float mx = e.x + dx;
-  const float my = e.y + dy;
-
-  // Keys of the projections; a slot past N holds -inf, below every key.
+  const RowStats st = warp_row_stats<kVpl, false>(p, e, a.n, a.inv_n, lane);
   unsigned key[kVpl];
-#pragma unroll
-  for (int r = 0; r < kVpl; ++r) {
-    const bool valid = 64 * (r >> 1) + 2 * lane + (r & 1) < a.n;
-    const float x = (mx - p[r].x) * hx + (my - p[r].y) * hy;
-    key[r] = float_key(valid ? x : __int_as_float(0xff800000));
-  }
+  warp_row_keys<kVpl, false>(p, st, a.n, lane, key);
 
   const float v = key_float(warp_kth_largest_key<kVpl>(key, a.k, hist));
 
   // Tie-safe tail over G = {x >= v}: the tie count cancels.
-  float tail = 0.f;
-  int cnt = 0;
-#pragma unroll
-  for (int r = 0; r < kVpl; ++r) {
-    const float x = key_float(key[r]);
-    if (x >= v) {
-      tail += x;
-      ++cnt;
-    }
-  }
-  const float sum_g = warp_sum(tail);
-  const int size_g = __reduce_add_sync(kFull, cnt);
+  float sum_g;
+  int size_g;
+  warp_tail<kVpl, false>(key, v, sum_g, size_g);
   if (lane == 0)
     write_row<kAllMetrics>(h_mean, g_mean, h_ego, g_cvar, g_drcvar, row, a.an,
-                           a.r_combined, a.delta, a.eps_over_alpha, hx, hy,
-                           mx, my, sum_g, size_g, v);
+                           a.r_combined, a.delta, a.eps_over_alpha, st.hx,
+                           st.hy, st.mx, st.my, sum_g, size_g, v);
 }
 
 // The block path: N > 1024, one 256-thread block a row, the projections
@@ -288,54 +241,18 @@ kth_largest_block_kernel(const float* __restrict__ x, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
-// The caller's plan of a launch (ops/cuda_kernels.py `halfspace_plan`):
-// values a lane (0: the block path), rows a block and the width of the
-// sample loads in bytes.  The entry points hold it against what the
-// kernels take and refuse the rest.
-struct Plan {
-  int values_per_lane, rows_per_block, load_bytes;
-};
-
-bool warp_plan_fits(const Plan& plan, int n) {
-  return n <= 32 * plan.values_per_lane && plan.rows_per_block >= 1 &&
-         plan.rows_per_block <= kWarpMaxRows;
-}
-
 template <int kVpl, bool kAllMetrics>
 int launch_warp(const float2* samples, const float2* ego,
                 const RowOutputs& out, int rows, const Plan& plan,
                 const RowArgs& a, cudaStream_t stream) {
-  const bool wide = plan.load_bytes == 16;
-  if (!warp_plan_fits(plan, a.n) || (!wide && plan.load_bytes != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (wide && ((reinterpret_cast<uintptr_t>(samples) & 15u) || (a.n & 1)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaError_t err = check_warp_plan(plan, a.n, samples);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int rpb = plan.rows_per_block;
   halfspace_warp_kernel<kVpl, kAllMetrics>
       <<<(rows + rpb - 1) / rpb, 32 * rpb, rpb * kBins * sizeof(int),
          stream>>>(samples, ego, out.h_mean, out.g_mean, out.h_ego,
-                   out.g_cvar, out.g_drcvar, rows, wide, a);
+                   out.g_cvar, out.g_drcvar, rows, plan.load_bytes == 16, a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Calls f(std::integral_constant<int, V>()) for the instantiated number
-// of values a lane V == values_per_lane; refuses any other.
-template <typename F>
-int with_values_per_lane(int values_per_lane, F&& f) {
-  switch (values_per_lane) {
-    case 2:
-      return f(std::integral_constant<int, 2>());
-    case 4:
-      return f(std::integral_constant<int, 4>());
-    case 8:
-      return f(std::integral_constant<int, 8>());
-    case 16:
-      return f(std::integral_constant<int, 16>());
-    case 32:
-      return f(std::integral_constant<int, 32>());
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 template <bool kAllMetrics>

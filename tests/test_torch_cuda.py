@@ -292,39 +292,147 @@ def test_entry_points_refuse_a_plan_the_kernels_do_not_take(cuda):
     torch.cuda.synchronize()
 
 
+# Every number of values a lane, both sides of the warp path's limit, an
+# odd N (8-byte loads), B off the rows-a-block multiple.
+VARIANT_GRID = [(4096, 1000), (9, 300), (7, 20), (5, 64), (5, 65), (10, 999),
+                (9, 1024), (6, 1025), (5, 4096)]
+
+
+def _misaligned(x):
+    """The same rows in a contiguous view 8 bytes into its storage."""
+    flat = torch.empty(x.numel() + 2, device=x.device)
+    view = flat[2:].view_as(x).copy_(x)
+    assert view.data_ptr() % 16 == 8 and view.is_contiguous()
+    return view
+
+
 @pytest.mark.parametrize("variant", ["prod_nosel", "nosel", "r3", "fixed12",
                                      "fixed22", "minimal", "minimal_planes"])
-@pytest.mark.parametrize("B,N", [(4096, 1000), (9, 300)])
+@pytest.mark.parametrize("B,N", VARIANT_GRID)
 def test_variant_kernels_match_plain(cuda, variant, B, N):
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
         cuda_variants as cv)
     x, ego = _rows(cuda, B, N, N)
     if variant == "minimal_planes":
-        fn, out = cv.minimal_planes, cv.minimal_planes(x, ego)
+        fn, call = cv.minimal_planes, cv.minimal_planes
         ref = cv.minimal_planes_plain(x, ego)
     else:
-        fn, out = cv.drcvar_variant, cv.drcvar_variant(x, ego, variant)
+        fn = cv.drcvar_variant
+
+        def call(s, e):
+            return cv.drcvar_variant(s, e, variant)
         ref = cv.drcvar_variant_plain(x, ego, variant)
+    before = fn.launches
+    out = call(x, ego)
     torch.cuda.synchronize()
-    assert fn.launches > 0
+    assert fn.launches == before + 1
     torch.testing.assert_close(out.h, ref.h, atol=1e-5, rtol=0)
     torch.testing.assert_close(out.g_tilde, ref.g_tilde, atol=2e-4,
                                rtol=1e-5)
+    # 8-byte loads give a lane the same samples as 16-byte loads.
+    shifted = call(_misaligned(x), ego)
+    assert fn.launches == before + 2
+    assert torch.equal(shifted.h, out.h)
+    assert torch.equal(shifted.g_tilde, out.g_tilde)
 
 
-def test_select_rounds_kernel_equals_plain(cuda):
+@pytest.mark.parametrize("B,N", [(4096, 1000), (9, 300)])
+def test_exact_bisections_equal_the_production_kernel(cuda, B, N):
+    """r3 and fixed22 bisect to the exact k-th value, and share the
+    production kernel's stages before the select: the same h bit for
+    bit, g to float32 rounding."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
         cuda_variants as cv)
-    x, ego = _rows(cuda, 4096, 1000, 3)
-    x[:8] = torch.round(x[:8] * 4) / 4       # heavy ties
-    x[8:16] = x[8:16, :1]                    # constant rows
+    x, ego = _rows(cuda, B, N, N)
+    prod = cv.drcvar_variant(x, ego, "prod")
+    for variant in ("r3", "fixed22"):
+        out = cv.drcvar_variant(x, ego, variant)
+        assert torch.equal(out.h, prod.h)
+        torch.testing.assert_close(out.g_tilde, prod.g_tilde, atol=2e-6,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,N", VARIANT_GRID)
+def test_select_rounds_kernel_equals_plain(cuda, B, N):
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        cuda_variants as cv)
+    B = max(B, 24)
+    x, ego = _rows(cuda, B, N, 3)
+    x[:8] = torch.round(x[:8] * 4) / 4       # repeated samples
+    x[8:16] = x[8:16, :1]                    # constant rows: every key tied
     before = cv.select_rounds.launches
     r = cv.select_rounds(x, ego, 0.2)
     torch.cuda.synchronize()
     assert cv.select_rounds.launches == before + 1
+    assert r.dtype == torch.int32 and r.shape == (B,)
     assert torch.equal(r, cv.select_rounds_plain(x, ego, 0.2))
-    assert r[8:16].tolist() == [1] * 8
+    assert torch.equal(r, cv.select_rounds(_misaligned(x), ego, 0.2))
+    # Tied keys run all four passes of the warp path's select; on the
+    # block path the count is the room an early exit would have.
+    assert r[8:16].tolist() == [4 if N <= ck.WARP_MAX_N else 1] * 8
     assert 1 <= int(r.min()) and int(r.max()) <= 4
+
+
+def test_select_rounds_counts_the_production_select(cuda):
+    """On the warp path the count is what the production select does on
+    the same keys: `kth_largest` runs that select alone, and its torch
+    replay reports the same passes on the plain version's projections."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        cuda_variants as cv)
+    x, ego = _rows(cuda, 2304, 1000, 11)
+    r = cv.select_rounds(x, ego, 0.2)
+    h = ck.all_metrics_halfspaces_plain(x, ego, *ARGS).h
+    centered = x - ego[:, None, :]
+    proj = -((centered - centered.mean(1, keepdim=True))
+             * h[:, None, :]).sum(-1).contiguous()
+    v, passes = ck.radix_select_plain(proj, 200)
+    assert torch.equal(ck.kth_largest(proj, 200), v)
+    # The two sets of projections differ in rounding only: a row's count
+    # moves where that splits or joins a digit of two keys.
+    assert float((r != passes).float().mean()) < 0.02
+    assert abs(float(r.float().mean()) - float(passes.float().mean())) < 0.01
+
+
+def test_variant_entry_points_refuse_a_plan_the_kernels_do_not_take(cuda):
+    """As the production entry points: too few values a lane, 16-byte
+    loads on an odd N, a block of more than 8 rows; and `minimal_planes`
+    has no warp kernel."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+        _build)
+    x, ego = _rows(cuda, 4, 100, 0)
+    odd, _ = _rows(cuda, 4, 99, 0)
+    h, g = torch.empty(8, device=cuda), torch.empty(4, device=cuda)
+    out = torch.empty(4, device=cuda, dtype=torch.int32)
+    lib = _build.load().lib
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def variant(samples, n, code, values, rows, load):
+        return lib.drcvar_variant(
+            samples.data_ptr(), ego.data_ptr(), h.data_ptr(), g.data_ptr(),
+            4, n, 20, code, 22, values, rows, load, 1.0 / n, 0.2 * n, 0.1,
+            0.75, stream)
+
+    def rounds(samples, n, values, rows, load):
+        return lib.drcvar_select_rounds(
+            samples.data_ptr(), ego.data_ptr(), out.data_ptr(), 4, n, 20,
+            values, rows, load, 1.0 / n, stream)
+
+    for code in range(5):
+        assert variant(x, 100, code, 4, 4, 16) == 0
+        assert variant(x, 100, code, 0, 1, 8) == 0      # a block a row
+    assert variant(x, 100, 5, 0, 1, 8) == 0
+    assert variant(x, 100, 5, 4, 4, 16) != 0            # minimal_planes
+    assert variant(x, 100, 6, 4, 4, 16) != 0            # no such variant
+    assert variant(x, 100, 6, 0, 1, 8) != 0
+    for call in (lambda *a: variant(a[0], a[1], 2, *a[2:]), rounds):
+        assert call(x, 100, 4, 4, 16) == 0
+        assert call(x, 100, 2, 4, 16) != 0          # 64 values hold no 100
+        assert call(x, 100, 3, 4, 16) != 0          # no such instantiation
+        assert call(x, 100, 4, 9, 16) != 0          # more than 8 rows a block
+        assert call(x, 100, 4, 4, 4) != 0           # no such load
+        assert call(odd, 99, 4, 4, 16) != 0         # odd N: rows not aligned
+        assert call(odd, 99, 4, 4, 8) == 0
+    torch.cuda.synchronize()
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -8,11 +8,15 @@
   g to atol 2e-4 / rtol 1e-5.  `"prod"` goes through
   `pallas_kernels.fused_drcvar_halfspace(interpret=True)` directly.
 * `select_rounds` has no JAX counterpart to agree with: the TPU function
-  counts the rounds of the TPU's moment-seeded select, the port's counts
-  the passes of its own 4-pass radix select, and the two selects differ
+  counts the trips of the TPU's moment-seeded select, the port's counts
+  the passes of its own 8-bit radix select, and the two selects differ
   by design.  Its plain version is checked on rows whose answer is
-  known; the kernel is held to the plain version on the card
-  (tests/test_torch_cuda.py).
+  known, on both paths: for N <= 1024 the passes the warp path's select
+  runs (tied keys run all four), for N > 1024 the first pass after which
+  the k-th key's bucket holds only the k-th key.  The kernel is held to
+  the plain version on the card (tests/test_torch_cuda.py); the warp
+  path's order of sums and its plan are in
+  tests/test_torch_variants_warp.py.
 """
 
 import functools
@@ -108,19 +112,28 @@ def test_exact_variants_agree_with_the_production_solve(rows):
         torch.testing.assert_close(gv, g, rtol=1e-5, atol=2e-4)
 
 
-def test_select_rounds_plain_on_known_rows():
-    rng = np.random.default_rng(4)
-    const = np.broadcast_to(rng.normal(size=(4, 1, 2)), (4, 64, 2)).copy()
+def _known_rows(rng, n):
+    const = np.broadcast_to(rng.normal(size=(4, 1, 2)), (4, n, 2)).copy()
     # Two values a row: two projections of opposite signs, all tied.
-    tied = rng.choice(np.asarray([-1.0, 2.0]), size=(4, 64, 1))
+    tied = rng.choice(np.asarray([-1.0, 2.0]), size=(4, n, 1))
     tied = np.concatenate([tied, np.zeros_like(tied)], -1)
-    rand = rng.normal(size=(64, 300, 2))
+    return const, tied
+
+
+def test_select_rounds_plain_on_known_rows():
+    """Rows whose k-th key is tied.  N <= 1024: the select leaves only
+    when its bin holds ONE key, so ties run all four passes.  N > 1024:
+    the bucket of the k-th key's top 8 bits already holds nothing but
+    copies of it, so the count is 1."""
+    rng = np.random.default_rng(4)
     ego = rng.normal(size=(64, 2))
-    for rows_, want in ((const, 1), (tied, 1)):
-        r = cv.select_rounds(torch.as_tensor(rows_, dtype=torch.float32),
-                             torch.as_tensor(ego[:4], dtype=torch.float32),
-                             cv.ALPHA)
-        assert r.dtype == torch.int32 and r.tolist() == [want] * 4
+    for n, want in ((64, 4), (1100, 1)):
+        for rows_ in _known_rows(rng, n):
+            r = cv.select_rounds(
+                torch.as_tensor(rows_, dtype=torch.float32),
+                torch.as_tensor(ego[:4], dtype=torch.float32), cv.ALPHA)
+            assert r.dtype == torch.int32 and r.tolist() == [want] * 4
+    rand = rng.normal(size=(64, 300, 2))
     r = cv.select_rounds(torch.as_tensor(rand, dtype=torch.float32),
                          torch.as_tensor(ego, dtype=torch.float32), cv.ALPHA)
     assert r.shape == (64,)
@@ -130,20 +143,48 @@ def test_select_rounds_plain_on_known_rows():
 
 @pytest.mark.parametrize("gap_bit,passes", [(2, 2), (8, 3), (16, 4)])
 def test_select_rounds_definition(gap_bit, passes):
-    """The pass count is the first p whose top-8p-bit bucket of the k-th
-    key holds nothing but the k-th key.  Rows built so that every sum is
-    exact and the mean is the ego (normal [1, 0], projections -x): the
-    k-th value 2^-5 and a larger one 2^-5 (1 + 2^-gap_bit) share their
-    top 8 + gap_bit key bits, so the select needs pass gap_bit // 8 + 2."""
+    """N <= 1024: the count is the passes the select ran, the first p
+    after which the bin of the k-th key's top 8p bits holds one key.
+    Rows of 16 distinct powers of two (and one balancing value) built so
+    that every sum is exact in any order and the mean is the ego (normal
+    [1, 0], projections -x): the k-th value 2^-5 and the next larger one
+    2^-5 (1 + 2^-gap_bit) share their top 8 + gap_bit key bits and no
+    other key shares their top 8, so the select runs gap_bit // 8 + 2
+    passes."""
     a = 2.0 ** -5
     b = a * (1.0 + 2.0 ** -gap_bit)
-    px = np.array([-b] * 4 + [-a] * 8 + [(8 * a + 4 * b) / 4] * 4)
+    larger = [2.0 ** e for e in (2, 1, 0, -1, -2, -3)]
+    smaller = [2.0 ** e for e in range(-6, -13, -1)]
+    proj = larger + [b, a] + smaller                # 8th largest: a
+    proj.append(-sum(proj))
     samples = np.zeros((1, 16, 2), np.float32)
+    samples[0, :, 0] = -np.asarray(proj)
+    assert np.array_equal(samples[0, :, 0].astype(np.float64),
+                          -np.asarray(proj))        # float32 holds them
+    assert float(samples[0, :, 0].astype(np.float64).sum()) == 0.0
+    assert len(set(proj)) == 16
+    for order in (slice(None), slice(None, None, -1)):
+        rounds = cv.select_rounds(
+            torch.as_tensor(samples[:, order].copy()), torch.zeros((1, 2)),
+            0.5)
+        assert rounds.tolist() == [passes]
+
+
+def test_select_rounds_definition_block_path():
+    """N > 1024 keeps the earlier count: the first p whose top-8p-bit
+    bucket of the k-th key holds nothing but the k-th key, ties or not.
+    512 values 2^-5 (1 + 2^-2), 1024 tied k-th values 2^-5 and 512
+    balancing ones: the two share 10 bits, so p = 2."""
+    a = 2.0 ** -5
+    b = a * 1.25
+    px = np.array([-b] * 512 + [-a] * 1024 + [(1024 * a + 512 * b) / 512]
+                  * 512)
+    samples = np.zeros((1, 2048, 2), np.float32)
     samples[0, :, 0] = px
     assert float(samples[0, :, 0].astype(np.float64).sum()) == 0.0
     rounds = cv.select_rounds(torch.as_tensor(samples), torch.zeros((1, 2)),
                               0.5)
-    assert rounds.tolist() == [passes]
+    assert rounds.tolist() == [2]
 
 
 def test_variant_dispatch_and_errors():
@@ -170,16 +211,18 @@ def test_variant_dispatch_and_errors():
 
 def test_kbench_harness_on_cpu():
     """The harness measures on a CUDA device only, and summarises the
-    pass counts per row and per 32-row group."""
+    pass counts per row and per block of rows."""
     with pytest.raises(ValueError, match="unknown variants"):
         tkb.measure(["nosel", "prod:512", "planes"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tkb.measure(["nosel"])
     rounds = torch.tensor([1, 2, 3, 4] * 16, dtype=torch.int32)
-    line = tkb.rounds_summary(rounds)
+    line = tkb.rounds_summary(rounds, 32)
     assert "per row min=1 mean=2.500 max=4" in line
-    assert "worst per 32-row group min=4 mean=4.000 max=4" in line
+    assert "worst per 32-row block min=4 mean=4.000 max=4" in line
+    line = tkb.rounds_summary(torch.tensor([1, 1, 2, 1, 3, 4, 1, 1]), 4)
+    assert "worst per 4-row block min=2 mean=3.000 max=4" in line
     assert set(tkb.NAMES) == set(cv.VARIANTS) | {"minimal_planes",
                                                  "select_rounds"}
     s, e = tkb.make_inputs(4, 10, "cpu")
