@@ -28,7 +28,16 @@ is non-zero):
      from 0);
   4. seeded end to end: the reference's seed-42 streams (N = 20);
   5. the batch run, with its launch counts, checks and wall time;
-  6. the entry points: Monte Carlo (twice from one seed, launch counts
+  6. the single-scenario filter API, launch counts from 0:
+     `filter_trajectory` per metric on the seeded multi_obstacle
+     scenario against the oracle and the pipeline, both fallbacks, the
+     bounds dropped, `filter_core_batched` at 2,048 QPs in chunks of 512
+     against one flat call, and a warm-started `solve_mpc_qp`;
+  7. what the hand kernels do not take, on the card all the same (the
+     call sites choose by dtype and shape): `cli --dtype float64` in
+     single and Monte Carlo mode, 49,153 samples a row, horizons 31 and
+     40;
+  8. the entry points: Monte Carlo (twice from one seed, launch counts
      from 0, a CPU float64 re-run of its first runs) and the timing
      sweep.
 The line before the last is the kernels' JSON record (for every kernel
@@ -40,6 +49,8 @@ are k = 1's and `k65` holds k = 65's); the last line is
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -61,6 +72,7 @@ LINALG_RESIDUAL = 64 * 2.0 ** -24   # n eps: a backward-stable n <= 64 solve
 BATCH = dict(scenarios=256, n_samples=1000, sim_time=6.0, qp_iters=35,
              qp_tol=3e-5, seed=0, recheck=8)
 MC = dict(runs=300, recheck=8, tol=1e-3)
+CHUNKED = dict(qps=2048, chunk=512)   # filter_core_batched against flat
 # The JAX halfspace bench's shapes (bench.py) for the DR-CVaR solve.
 DRCVAR_SHAPES = ((32768, 1000), (8192, 4096), (1, 1000))
 # Operation counts a sample for the halfspace kernels' bounds (all of
@@ -694,7 +706,10 @@ def drive_kbench(pt, torch):
 
 
 def phase_e2e(pt, torch, dev, streams):
-    """Seeded scenarios: GPU float32 against CPU float64 and the oracle."""
+    """Seeded scenarios: GPU float32 against CPU float64 and the oracle.
+    Returns {name: (params, scenario, GPU run, oracle controls)} of the
+    scenarios held to the oracle."""
+    held = {}
     for preset, name in streams.E2E_CASES:
         params = pt.config.get_parameters(preset)
         scenario = pt.config.get_scenario_config(name, preset)
@@ -724,9 +739,455 @@ def phase_e2e(pt, torch, dev, streams):
             gate(worst < ORACLE_TOL,
                  f"{name}: GPU controls {worst:.3e} from the oracle")
             line += f", |u_gpu - u_oracle| {worst:.3e} (gate {ORACLE_TOL})"
+            held[name] = (params, scenario, gpu, oracle)
         else:
             line += " (not gated)"
         print(line)
+    return held
+
+
+def path_kernels(pt):
+    """The wrappers of kernels 1-3, whose counters the paths are held to."""
+    return (pt.ops.cuda_kernels.all_metrics_halfspaces,
+            pt.ops.cuda_linalg.batched_cholesky,
+            pt.ops.cuda_linalg.batched_cho_solve)
+
+
+def reset_launches(pt) -> None:
+    for fn in path_kernels(pt):
+        fn.launches = 0
+
+
+def read_launches(pt) -> dict:
+    return {fn.__name__: fn.launches for fn in path_kernels(pt)}
+
+
+def gate_launched(pt, names, label) -> dict:
+    """The counters since `reset_launches`: every kernel in `names`
+    launched, every other kernel of the path did not."""
+    launches = read_launches(pt)
+    for name, count in launches.items():
+        gate((count > 0) == (name in names),
+             f"{label}: launches {launches}, expected only {sorted(names)}")
+    return launches
+
+
+LINALG = ("batched_cholesky", "batched_cho_solve")
+
+
+def flat_qp_inputs(pt, torch, res, scenario):
+    """The flat batch of S * 3 QPs the pipeline builds from a run (no
+    padding: the run has a halfspace for every step of the horizon):
+    (x0 [B, n], x_ref [B, H+1, n], hs_h [B, H, n_obs, 2], hs_g)."""
+    S, H = res.x_ref.shape[0], res.u_ref.shape[1]
+    hs_h = torch.stack([res.halfspaces.by_metric(m).h
+                        for m in pt.models.METRICS], dim=1)
+    hs_g = torch.stack([res.halfspaces.by_metric(m).g_tilde
+                        for m in pt.models.METRICS], dim=1)
+    gate(hs_h.shape[2] == H, "flat_qp_inputs: the run needs padding")
+    x0 = torch.zeros((S, res.x_ref.shape[-1]), dtype=res.x_ref.dtype,
+                     device=res.x_ref.device)
+    x0[:, :2] = torch.as_tensor(scenario.ego_start, dtype=x0.dtype,
+                                device=x0.device)
+    return (x0.repeat_interleave(3, dim=0),
+            res.x_ref.repeat_interleave(3, dim=0),
+            hs_h.flatten(0, 1), hs_g.flatten(0, 1))
+
+
+def box_bounds(pt, torch, dtype, device):
+    """(u_min, u_max, p_min, p_max) as the pipeline passes them."""
+    pipe = pt.models.pipeline
+    return (*(torch.as_tensor(v, dtype=dtype, device=device)
+              for v in pipe.INPUT_BOUNDS),
+            *(torch.as_tensor(v[:2], dtype=dtype, device=device)
+              for v in pipe.STATE_BOUNDS))
+
+
+def timed_ms(torch, fn):
+    """(result, wall ms by the host clock around a synchronised call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_filter(pt, torch, dev, held, card):
+    """`filter_trajectory`, `filter_core_batched` and the warm start, in
+    float32 on the card, on the seeded multi_obstacle scenario of phase 4
+    (H = 30, seed-42 streams) and on the batch run's QPs (N = 1000)."""
+    pipe = pt.models.pipeline
+    params, scenario, run, oracle = held["multi_obstacle"]
+    f32, f64 = torch.float32, torch.float64
+    mpc = pt.models.make_statics(scenario, params, f32, dev).mpc
+    mpc64 = pt.models.make_statics(scenario, params, f64, "cpu").mpc
+    H = params.horizon
+    x0, x_ref, hs_h, hs_g = flat_qp_inputs(pt, torch, run, scenario)
+    u_ref = run.u_ref.repeat_interleave(3, dim=0)
+    bounds = dict(input_bounds=pipe.INPUT_BOUNDS,
+                  position_bounds=pipe.STATE_BOUNDS)
+
+    # One call per metric, as a user makes it, and the three as a batch
+    # (the pipeline's own batch, so the same arithmetic lane by lane).
+    reset_launches(pt)
+    worst_oracle = worst_single = 0.0
+    for mi, m in enumerate(pt.models.METRICS):
+        res = pt.filter_trajectory(mpc, x0[mi], x_ref[mi], u_ref[mi],
+                                   hs_h[mi], hs_g[mi], **bounds, device=dev)
+        gate(res.u_filtered.shape == (H, 2) and res.x_filtered.shape
+             == (H + 1, 4), f"filter {m}: shapes")
+        gate(bool(torch.isfinite(res.x_filtered).all()),
+             f"filter {m}: not finite")
+        gate(bool(res.status) and not bool(res.used_fallback),
+             f"filter {m}: not converged")
+        off = float(np.abs(res.u_filtered.cpu().double().numpy()
+                           - oracle[m]).max())
+        gate(off < ORACLE_TOL, f"filter {m}: controls {off:.3e} from the "
+             "oracle")
+        single = float((res.u_filtered - run.filtered_u[0, mi]).abs().max())
+        gate(single < ORACLE_TOL, f"filter {m}: controls {single:.3e} from "
+             "the pipeline's")
+        worst_oracle, worst_single = max(worst_oracle, off), max(worst_single,
+                                                                 single)
+    batch = pt.filter_trajectory(mpc, x0, x_ref, u_ref, hs_h, hs_g, **bounds,
+                                 device=dev)
+    launches = gate_launched(pt, LINALG, "filter_trajectory")
+    as_batch = float((batch.u_filtered - run.filtered_u[0]).abs().max())
+    gate(as_batch <= 1e-6, f"filter: the three metrics as one batch are "
+         f"{as_batch:.3e} from the pipeline's controls")
+    gate(batch.qp_iterations.tolist() == run.qp_iterations[0].tolist(),
+         "filter: iteration counts differ from the pipeline's")
+    print(f"[filter] filter_trajectory, multi_obstacle (H = {H}, seed-42 "
+          f"streams), float32 on the card: |u - u_oracle| {worst_oracle:.3e} "
+          f"(gate {ORACLE_TOL}); |u - u_pipeline| {as_batch:.3e} with the "
+          f"three metrics as one batch (gate 1e-6), {worst_single:.3e} a "
+          f"metric a call; launches {launches}")
+
+    # Forced non-convergence: the shifted previous sequence, or u_ref.
+    gen = torch.Generator(device=dev).manual_seed(3)
+    last = torch.randn(3, H, 2, generator=gen, dtype=f32, device=dev)
+    fb = pt.filter_trajectory(mpc, x0, x_ref, u_ref, hs_h, hs_g, **bounds,
+                              last_optimal_u=last, has_last=True, max_iters=1,
+                              device=dev)
+    gate(bool(fb.used_fallback.all()) and not bool(fb.status.any()),
+         "fallback: max_iters=1 converged")
+    gate(torch.equal(fb.u_filtered,
+                     torch.cat([last[:, 1:], u_ref[:, H - 1:H]], dim=1)),
+         "fallback: not the shifted previous sequence")
+    fb = pt.filter_trajectory(mpc, x0, x_ref, u_ref, hs_h, hs_g, **bounds,
+                              max_iters=1, device=dev)
+    gate(bool(fb.used_fallback.all()), "fallback: max_iters=1 converged")
+    gate(torch.equal(fb.u_filtered, u_ref), "fallback: not u_ref")
+    gate(bool(torch.isfinite(fb.x_filtered).all()), "fallback: rollout")
+    print("[filter] max_iters=1: used_fallback on every lane; controls equal "
+          "the shifted previous sequence with last_optimal_u, u_ref without")
+
+    # Bounds dropped: the dense operators, then no box rows at all.  Held
+    # at a float32 tolerance of 1e-5: at the default 3e-5 a lane can stop
+    # one iteration earlier with an iterate whose polish is rejected, and
+    # then sits ~1e-2 from float64 (the JAX package in float32 does the
+    # same on the same inputs); that reading is printed, not gated.
+    host = [t.cpu().double() for t in (x0, x_ref, u_ref, hs_h, hs_g)]
+    for label, kept in (("input_bounds=None",
+                         dict(position_bounds=pipe.STATE_BOUNDS)),
+                        ("no bounds", {})):
+        ref = pt.filter_trajectory(mpc64, *host, **kept, device="cpu")
+        gate(bool(ref.status.all()), f"{label}: CPU float64 not converged")
+        offs = {}
+        for tol in (None, 1e-5):
+            reset_launches(pt)
+            res = pt.filter_trajectory(mpc, x0, x_ref, u_ref, hs_h, hs_g,
+                                       **kept, tol=tol, device=dev)
+            gate_launched(pt, LINALG, label)
+            gate(bool(torch.isfinite(res.u_filtered).all()),
+                 f"{label}: not finite")
+            gate(bool(res.status.all()), f"{label}: not converged")
+            offs[tol] = float((res.u_filtered.cpu().double()
+                               - ref.u_filtered).abs().max())
+        gate(offs[1e-5] < ORACLE_TOL,
+             f"{label}: {offs[1e-5]:.3e} from CPU float64")
+        print(f"[filter] {label}: converged, |u - u_cpu_f64| {offs[1e-5]:.3e} "
+              f"at tol 1e-5 (gate {ORACLE_TOL}), {offs[None]:.3e} at the "
+              f"default tol 3e-5 (not gated); |u| up to "
+              f"{float(ref.u_filtered.abs().max()):.2f}")
+
+    # The warm start: the solution of a perturbed problem (offsets moved
+    # by 0.05) as the start of the original.
+    core = pt.models.mpc_filter._filter_core
+    box = box_bounds(pt, torch, f32, dev)
+    cold = core(mpc, x0, x_ref, hs_h, hs_g, *box, 60, None)
+    near = core(mpc, x0, x_ref, hs_h, hs_g + 0.05, *box, 60, None)[2]
+    warm = core(mpc, x0, x_ref, hs_h, hs_g, *box, 60, None,
+                warm=(near.u, near.s, *near.mults))
+    gate(bool(cold[2].converged.all()) and bool(warm[2].converged.all()),
+         "warm: not converged")
+    off = float((warm[0] - cold[0]).abs().max())
+    gate(off < ORACLE_TOL, f"warm: {off:.3e} from the cold optimum")
+    it_cold, it_warm = (s.iterations.tolist() for s in (cold[2], warm[2]))
+    gate(all(w <= c for w, c in zip(it_warm, it_cold)),
+         f"warm: iterations {it_warm} above the cold solve's {it_cold}")
+    print(f"[warm] solve_mpc_qp(warm=...) from the solution of the problem "
+          f"with offsets + 0.05: |u_warm - u_cold| {off:.3e} (gate "
+          f"{ORACLE_TOL}), iterations {it_warm} against cold {it_cold}")
+
+    # filter_core_batched: three batch runs from shifted seeds give
+    # 2,304 QPs at N = 1000; the first 2,048 in chunks of 512 against one
+    # flat call.  In float64 the two agree lane by lane (1e-9, equal
+    # iteration counts).  In float32 they cannot be held to that on the
+    # card: cuBLAS picks its kernel from the batch size, so a lane's
+    # products round otherwise at 512 than at 2,048, and a lane that
+    # stops on an iterate whose polish is rejected then lands ~1e-2 away
+    # (both answers converged).  There the chunked call is held, bit for
+    # bit, to its chunks solved on their own, and its distance from the
+    # flat call is printed.
+    b_params, b_scenario, b_statics = batch_setup(pt, torch, dev)
+    parts = []
+    for shift in range(3):
+        res = run_batch(pt, torch, dev, b_params, b_scenario, b_statics,
+                        seed=BATCH["seed"] + shift)
+        parts.append(flat_qp_inputs(pt, torch, res, b_scenario))
+        del res
+    n_qp, chunk = CHUNKED["qps"], CHUNKED["chunk"]
+    gate(sum(p[0].shape[0] for p in parts) >= n_qp, "chunked: too few QPs")
+    data = tuple(torch.cat(ts)[:n_qp] for ts in zip(*parts))
+    del parts
+    args = (b_statics.mpc, *data, *box, BATCH["qp_iters"], BATCH["qp_tol"])
+    core(*args)                                      # warm-up
+    reset_launches(pt)
+    flat, flat_ms = timed_ms(torch, lambda: core(*args))
+    flat_launches = gate_launched(pt, LINALG, "flat solve")
+    reset_launches(pt)
+    chunked, chunk_ms = timed_ms(
+        torch, lambda: pt.filter_core_batched(*args, chunk=chunk))
+    chunk_launches = gate_launched(pt, LINALG, "filter_core_batched")
+    gate(bool(flat[2].converged.all()) and bool(chunked[2].converged.all()),
+         "filter_core_batched: not converged")
+    gate(chunked[0].shape == flat[0].shape
+         and chunked[2].mults[0].shape == flat[2].mults[0].shape,
+         "filter_core_batched: shapes")
+    for i in range(0, n_qp, chunk):
+        own = core(b_statics.mpc, *(t[i:i + chunk] for t in data), *box,
+                   BATCH["qp_iters"], BATCH["qp_tol"])
+        gate(torch.equal(own[0], chunked[0][i:i + chunk])
+             and torch.equal(own[3], chunked[3][i:i + chunk])
+             and torch.equal(own[2].iterations,
+                             chunked[2].iterations[i:i + chunk]),
+             f"filter_core_batched: chunk at {i} differs from its own solve")
+    off = (chunked[0] - flat[0]).abs().amax((1, 2))
+    moved = int((chunked[2].iterations != flat[2].iterations).sum())
+    per_chunk = [int(chunked[2].iterations[i:i + chunk].max())
+                 for i in range(0, n_qp, chunk)]
+    print(f"[filter] filter_core_batched, {n_qp} QPs (multi_obstacle, N = "
+          f"{b_params.num_samples}), chunk={chunk}, float32: every lane "
+          f"converged; each chunk bit-equal to its own flat solve; against "
+          f"ONE flat call (not gated: cuBLAS rounds by batch size) "
+          f"{int((off <= 1e-6).sum())} lanes within 1e-6, "
+          f"{int((off <= ORACLE_TOL).sum())} within {ORACLE_TOL}, max "
+          f"{float(off.max()):.3e}, iterations differ on {moved} lanes (max "
+          f"{int(flat[2].iterations.max())} flat, per chunk {per_chunk}); "
+          f"wall {chunk_ms:.1f} ms in chunks, {flat_ms:.1f} ms flat (host "
+          f"clock, not gated) on {card}; launches {chunk_launches} in "
+          f"chunks, {flat_launches} flat")
+    mpc64 = pt.models.make_statics(b_scenario, b_params, f64, dev).mpc
+    args64 = (mpc64, *(t.double() for t in data),
+              *box_bounds(pt, torch, f64, dev), 60, None)
+    reset_launches(pt)
+    flat64, flat64_ms = timed_ms(torch, lambda: core(*args64))
+    chunked64, chunk64_ms = timed_ms(
+        torch, lambda: pt.filter_core_batched(*args64, chunk=chunk))
+    gate_launched(pt, (), "filter_core_batched float64")
+    gate(torch.equal(chunked64[2].converged, flat64[2].converged),
+         "filter_core_batched float64: converged flags differ")
+    off64 = float((chunked64[0] - flat64[0]).abs().max())
+    gate(off64 <= 1e-9, f"filter_core_batched float64: controls {off64:.3e} "
+         "from the flat call's")
+    gate(torch.equal(chunked64[2].iterations, flat64[2].iterations),
+         "filter_core_batched float64: per-lane iterations differ from the "
+         "flat call's")
+    print(f"[filter] filter_core_batched, the same {n_qp} QPs in float64 on "
+          f"the card (plain factorisations): chunk={chunk} against one flat "
+          f"call, controls within {off64:.3e} (gate 1e-9), per-lane "
+          f"iterations and converged flags equal (max "
+          f"{int(flat64[2].iterations.max())}, converged "
+          f"{float(flat64[2].converged.float().mean()):.4f} at tol 1e-9); wall "
+          f"{chunk64_ms:.1f} ms in chunks, {flat64_ms:.1f} ms flat")
+
+
+@contextlib.contextmanager
+def count_linalg_systems(pt):
+    """Counts, while the block runs, the solver's factorisations and
+    solves by (function, n, right-hand sides): which went to the kernel
+    wrappers and which to the plain versions."""
+    qp = pt.ops.qp_ipm_structured
+    names = ("batched_cholesky", "batched_cholesky_plain",
+             "batched_cho_solve", "batched_cho_solve_plain")
+    real = {name: getattr(qp, name) for name in names}
+    seen = collections.Counter()
+
+    def spy(name):
+        def call(*args):
+            k = (1 if "solve" not in name or args[1].dim() == 2
+                 else args[1].shape[-1])
+            seen[name, args[0].shape[-1], k] += 1
+            return real[name](*args)
+        return call
+
+    for name in names:
+        setattr(qp, name, spy(name))
+    try:
+        yield seen
+    finally:
+        for name in names:
+            setattr(qp, name, real[name])
+
+
+def phase_beyond_kernels(pt, torch, dev, streams, card):
+    """float64, rows of more than 49,152 samples and horizons above 30 on
+    the card: the call sites send them to the plain versions on the same
+    device, the rest of each run still goes through the kernels."""
+    f32, f64 = torch.float32, torch.float64
+
+    def cpu_rerun(scenario, params, obstacles, qp_iters=60):
+        return pt.models.run_scenario_with_obstacles(
+            pt.models.make_statics(scenario, params, f64, "cpu"),
+            pt.simulation.ObstacleData(*(t.cpu().double()
+                                         for t in obstacles)),
+            scenario.ego_start, scenario.ego_goal, params.ego_velocity,
+            qp_iters)
+
+    # float64 through the CLI, single and Monte Carlo mode.
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("multi_obstacle")
+    argv = ["--scenario", "multi_obstacle", "--dtype", "float64", "--device",
+            dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(pt)
+        res = pt.cli.main(argv + ["--mode", "single", "--save_dir", tmp])
+        gate_launched(pt, (), "cli --dtype float64 --mode single")
+        gate(res.filtered_u.dtype == f64
+             and res.filtered_u.device.type == dev.type,
+             "f64 single: not float64 on the card")
+        gate(bool(torch.isfinite(res.filtered_u).all()), "f64 single: finite")
+        gate(bool(res.qp_converged.all()), "f64 single: not converged")
+        cpu = cpu_rerun(scenario, params, res.obstacles)
+        off = float((res.filtered_u.cpu() - cpu.filtered_u).abs().max())
+        gate(off <= 1e-6, f"f64 single: controls {off:.3e} from CPU float64")
+
+        n_runs = 8
+        reset_launches(pt)
+        mc = pt.cli.main(argv + ["--mode", "monte_carlo", "--mc_runs",
+                                 str(n_runs), "--save_dir", tmp])
+        gate_launched(pt, (), "cli --dtype float64 --mode monte_carlo")
+    gate(mc.min_distances.dtype == f64
+         and mc.min_distances.device.type == dev.type,
+         "f64 monte_carlo: not float64 on the card")
+    gate(bool(torch.isfinite(mc.min_distances).all()), "f64 monte_carlo")
+    gate(bool(mc.qp_converged.all()), "f64 monte_carlo: not converged")
+    mcm = pt.evaluation.monte_carlo
+    obs = mcm.run_obstacles(
+        pt.models.make_statics(scenario, params, f64, dev),
+        mcm.run_seeds(42, n_runs), scenario, params,
+        int(params.sim_time / params.dt))
+    md_cpu, _ = mcm.reduce_runs(cpu_rerun(scenario, params, obs))
+    off_mc = float((mc.min_distances.cpu() - md_cpu).abs().max())
+    gate(off_mc <= 1e-6, f"f64 monte_carlo: min distances {off_mc:.3e} from "
+         "CPU float64")
+    print(f"[f64] cli --dtype float64 --device {dev.type}, multi_obstacle: single "
+          f"converged, |u - u_cpu_f64| {off:.3e} (gate 1e-6); monte_carlo "
+          f"{n_runs} runs converged, min distances within {off_mc:.3e} of "
+          f"CPU float64 (gate 1e-6); launches {read_launches(pt)}: float64 "
+          f"takes the closed forms and the plain factorisations on the card")
+
+    # 49,153 samples a row, float32: one scenario, one obstacle, 8 steps.
+    ck = pt.ops.cuda_kernels
+    scenario = pt.config.get_scenario_config("head_on")
+    n_big, n_steps = ck.MAX_N_SAMPLES + 1, 7
+    statics = pt.models.make_statics(scenario, params, f32, dev)
+    obs = pt.simulation.generate_obstacle_scenarios(
+        torch.Generator(device=dev).manual_seed(5),
+        *(torch.as_tensor(v, dtype=f32, device=dev)
+          for v in (scenario.obstacle_starts, scenario.obstacle_directions,
+                    scenario.obstacle_speeds)),
+        n_steps, params.dt, n_big, params.noise_var, 1)
+    x_ref = pt.models.straight_line_trajectory(
+        statics.planner, *(torch.as_tensor(v, dtype=f32, device=dev)[None]
+                           for v in (scenario.ego_start, scenario.ego_goal)),
+        params.ego_velocity)[0]
+    reset_launches(pt)
+    hs = pt.simulation.compute_safe_halfspaces_for_trajectory(
+        statics.env, obs.samples, x_ref)
+    gate_launched(pt, (), f"N = {n_big}")
+    ref = pt.simulation.compute_safe_halfspaces_for_trajectory(
+        pt.models.make_statics(scenario, params, f64, "cpu").env,
+        obs.samples.cpu().double(), x_ref.cpu().double())
+    gate(hs.mean.h.shape == (1, n_steps + 1, 1, 2), f"N = {n_big}: shape")
+    err = 0.0
+    for m in pt.models.METRICS:
+        ours, want = hs.by_metric(m), ref.by_metric(m)
+        err = max(err, check_hg((ours.h.cpu().double(),
+                                 ours.g_tilde.cpu().double()),
+                                (want.h, want.g_tilde), f"N = {n_big} {m}"))
+    print(f"[bigN] N = {n_big} samples a row (1 obstacle, {n_steps + 1} "
+          f"steps), float32 on the card: the closed forms, no kernel launch; "
+          f"max abs err {err:.3e} from CPU float64 (h {H_TOL}, g {G_ATOL} + "
+          f"{G_RTOL} rel)")
+
+    # Horizons 31 and 40 in float32 at N = 1000.  head_on on the seed-42
+    # streams is held to CPU float64 at the oracle's tolerance.
+    # multi_obstacle through `run_single_scenario` is held to everything
+    # but that: in float32 its QPs can stop on an iterate whose polish is
+    # rejected, at any horizon (30 too), and then sit ~1e-2 from float64
+    # at merit < 10 tol, as the JAX package's do; its distance is printed.
+    base = pt.config.get_parameters("custom")
+    for name, horizon in (("head_on", 31), ("head_on", 40),
+                          ("multi_obstacle", 31), ("multi_obstacle", 40)):
+        scenario = pt.config.get_scenario_config(name)
+        params = dataclasses.replace(
+            base, horizon=horizon, num_samples=BATCH["n_samples"],
+            sim_time=(horizon + 0.5) * base.dt)
+        gated = name == "head_on"
+        reset_launches(pt)
+        with count_linalg_systems(pt) as seen:
+            if gated:
+                obs = streams.reference_rng_obstacles(
+                    scenario, params.sim_time, params.dt, params.num_samples)
+                res = pt.models.run_scenario_with_obstacles(
+                    pt.models.make_statics(scenario, params, f32, dev),
+                    pt.convert.obstacle_data(obs, f32, dev, True),
+                    scenario.ego_start, scenario.ego_goal,
+                    params.ego_velocity)
+            else:
+                res = pt.models.run_single_scenario(
+                    scenario, params, seed=42, dtype=f32, device=dev)
+        n, k_sel = 2 * horizon, 2 * horizon + 4
+        to_kernel = {key for key in seen if not key[0].endswith("_plain")}
+        for fn_name, size, k in seen:
+            gate(fn_name.endswith("_plain") == (size > 64),
+                 f"H = {horizon}: {fn_name} took a system of size {size}")
+        gate({key[1] for key in seen} == {n, k_sel}, f"H = {horizon}: sizes")
+        gate_launched(pt, ("all_metrics_halfspaces",) + (LINALG if n <= 64
+                                                         else ()),
+                      f"{name} H = {horizon}")
+        gate(res.filtered_u.shape == (1, 3, horizon, 2), "longH: shape")
+        gate(bool(torch.isfinite(res.filtered_u).all()), "longH: finite")
+        gate(bool(res.qp_converged.all()),
+             f"{name} H = {horizon}: not converged")
+        cpu = cpu_rerun(scenario, params, res.obstacles)
+        off = float((res.filtered_u.cpu().double() - cpu.filtered_u)
+                    .abs().max())
+        if gated:
+            gate(off < ORACLE_TOL, f"{name} H = {horizon}: controls "
+                 f"{off:.3e} from CPU float64")
+        systems = ", ".join(
+            f"{fn_name} n={size} k={k} x{count}"
+            for (fn_name, size, k), count in sorted(seen.items()))
+        print(f"[longH] {name}, horizon {horizon} (n = {n}, the polish's "
+              f"second system {k_sel} wide), N = {params.num_samples}, "
+              f"float32 on the card: converged, IPM iterations "
+              f"{res.qp_iterations[0].tolist()}, |u - u_cpu_f64| {off:.3e} "
+              f"({'gate ' + str(ORACLE_TOL) if gated else 'not gated'}); "
+              f"{len(to_kernel)} of {len(seen)} kinds of system to the "
+              f"kernels: {systems}; launches {read_launches(pt)}")
 
 
 def batch_setup(pt, torch, dev):
@@ -738,8 +1199,8 @@ def batch_setup(pt, torch, dev):
     return params, scenario, statics
 
 
-def run_batch(pt, torch, dev, params, scenario, statics):
-    gen = torch.Generator(device=dev).manual_seed(BATCH["seed"])
+def run_batch(pt, torch, dev, params, scenario, statics, seed=BATCH["seed"]):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     return pt.models.run_scenario_core(
         statics, gen, scenario.ego_start, scenario.ego_goal,
         scenario.obstacle_starts, scenario.obstacle_directions,
@@ -752,21 +1213,17 @@ def run_batch(pt, torch, dev, params, scenario, statics):
 def phase_entry_points(pt, torch, dev, card):
     """Monte Carlo through the CLI (twice from one seed) and the timing
     sweep at the JAX defaults."""
-    ck, cl = pt.ops.cuda_kernels, pt.ops.cuda_linalg
-    kernels = (ck.all_metrics_halfspaces, cl.batched_cholesky,
-               cl.batched_cho_solve)
     argv = ["--mode", "monte_carlo", "--mc_runs", str(MC["runs"]),
             "--device", "cuda"]
     runs, walls = [], []
     with tempfile.TemporaryDirectory() as tmp:
         for _ in range(2):
-            for fn in kernels:
-                fn.launches = 0
+            reset_launches(pt)
             t0 = time.perf_counter()
             res = pt.cli.main(argv + ["--save_dir", tmp])
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            launches = {fn.__name__: fn.launches for fn in kernels}
+            launches = read_launches(pt)
             gate(min(launches.values()) > 0,
                  f"monte_carlo: a kernel never launched: {launches}")
             runs.append(res)
@@ -837,7 +1294,6 @@ def main() -> int:
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments.linalg_bench  # noqa: F401,E501
 
     dev = torch.device("cuda", 0)
-    ck, cl = pt.ops.cuda_kernels, pt.ops.cuda_linalg
 
     # 1. Device.
     card = nvidia_smi()
@@ -865,15 +1321,13 @@ def main() -> int:
     kbench_launches = drive_kbench(pt, torch)
 
     # 4. Seeded end to end.
-    phase_e2e(pt, torch, dev, streams)
+    held = phase_e2e(pt, torch, dev, streams)
 
     # 5. The batch run: a warm-up drive, then counters from 0 and one
     # measured drive of the main path.
     params, scenario, statics = batch_setup(pt, torch, dev)
     warm = run_batch(pt, torch, dev, params, scenario, statics)
-    for fn in (ck.all_metrics_halfspaces, cl.batched_cholesky,
-               cl.batched_cho_solve):
-        fn.launches = 0
+    reset_launches(pt)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -884,9 +1338,7 @@ def main() -> int:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     device_ms = start.elapsed_time(end)
-    launches = {"all_metrics_halfspaces": ck.all_metrics_halfspaces.launches,
-                "batched_cholesky": cl.batched_cholesky.launches,
-                "batched_cho_solve": cl.batched_cho_solve.launches}
+    launches = read_launches(pt)
     gate(min(launches.values()) > 0, f"a kernel never launched: {launches}")
     S = BATCH["scenarios"]
     gate(res.filtered_u.shape == (S, 3, params.horizon, 2), "batch shape")
@@ -934,7 +1386,11 @@ def main() -> int:
     print(f"[batch] launches {launches}")
     launches.update(kbench_launches)
 
-    # 6. The entry points.
+    # 6. The single-scenario filter API; 7. what the kernels do not take.
+    phase_filter(pt, torch, dev, held, card)
+    phase_beyond_kernels(pt, torch, dev, streams, card)
+
+    # 8. The entry points.
     phase_entry_points(pt, torch, dev, card)
 
     source = f"{PKG}/ops/csrc/"

@@ -21,7 +21,12 @@ Hopper (`ops/csrc/`), built with nvcc on first use:
     `experiments/kbench.py`).
 
 On a CPU tensor each wrapper runs its plain PyTorch version instead; on
-a CUDA tensor it launches its kernel or raises.
+a CUDA tensor it launches its kernel or raises.  What the kernels do not
+take (float64, more than 49,152 samples a row, systems wider than 64)
+never reaches a wrapper: the call sites send it to the plain versions on
+the same device, choosing by dtype and shape as the JAX package does
+(`simulation/environment.use_halfspace_kernel`,
+`ops/qp_ipm_structured.use_linalg_kernels`).
 
 This package never imports jax.
 
@@ -36,5 +41,6 @@ from . import models
 from . import evaluation
 from . import utils
 from . import convert
+from .models import MPCResult, filter_core_batched, filter_trajectory
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Command line of the PyTorch / CUDA port.
 
     python -m dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.cli \
-        --scenario head_on --mode single [--preset paper] [--dtype float64] \
-        [--device cuda|cpu] [--seed 42]
+        --scenario head_on --mode single [--metric dr_cvar] [--animate] \
+        [--preset paper] [--dtype float64] [--device cuda|cpu] [--seed 42]
     ... --mode monte_carlo --mc_runs 300 [--save_dir results]
     ... --mode timing_analysis --sample_sizes 10,50,100,500,1000,1500 \
         --timing_runs 50 [--save_dir results]
@@ -12,16 +12,24 @@ The modes of the JAX package's CLI:
 
   * single: one scenario through the pipeline; prints each metric's
     solver status and IPM iterations and the minimum distance to
-    collision with its verdict (the plots are not ported yet);
+    collision with its verdict; saves `<scenario>_results.png` and
+    `<scenario>_<metric>_halfspaces.png` (with --animate also
+    `<scenario>_<metric>_animation.mp4`, or `.gif` where ffmpeg cannot
+    write) under --save_dir;
   * monte_carlo: the collision-probability study; prints the summary and
-    saves `<scenario>_mc_data.npz` under --save_dir;
+    saves `<scenario>_mc_data.npz` and `<scenario>_mc_comparison.png`
+    under --save_dir;
   * timing_analysis: the DR-CVaR computation-time sweep; writes the JAX
     package's artifacts under --save_dir.
+
+The plots need matplotlib.  Where it is not installed the run prints one
+line naming the plots it skips and goes on; --animate there is an error.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 
 import torch
@@ -31,6 +39,17 @@ from .config import DEFAULT_DEVICE
 
 def _dtype(args):
     return torch.float64 if args.dtype == "float64" else torch.float32
+
+
+def _load_viz(skipped: str):
+    """simulation/visualization.py, or None (after one line naming the
+    plots that are skipped) where matplotlib is not installed."""
+    try:
+        from .simulation import visualization
+    except ImportError:
+        print(f"matplotlib is not installed: skipping {skipped}")
+        return None
+    return visualization
 
 
 def run_single(args):
@@ -60,6 +79,37 @@ def run_single(args):
         d_min = float(d.min())
         verdict = "COLLISION" if d_min < 0 else "Safe"
         print(f"{name:10s}: min distance {d_min:+.4f}  [{verdict}]")
+
+    metric = args.metric
+    results_png = f"{args.scenario}_results.png"
+    halfspaces_png = f"{args.scenario}_{metric}_halfspaces.png"
+    viz = _load_viz(f"{results_png} and {halfspaces_png}")
+    if viz is None:
+        return result
+    viz.plot_distance_to_collision(
+        distances, save_path=os.path.join(args.save_dir, results_png))
+    idx = dct.models.METRICS.index(metric)
+    hs = result.halfspaces.by_metric(metric)
+    viz.visualize_trajectory_with_halfspaces(
+        result.filtered_x[0, idx], result.obstacles.realization[0],
+        hs.h[0], hs.g_tilde[0], params.robot_radius, params.obstacle_radius,
+        title=(f"{args.scenario.capitalize()} Scenario with "
+               f"{metric.upper()} Safe Halfspaces"),
+        save_path=os.path.join(args.save_dir, halfspaces_png))
+    print(f"Saved plots to {args.save_dir}/")
+
+    if args.animate:
+        print("\nCreating animation...")
+        path = os.path.join(args.save_dir,
+                            f"{args.scenario}_{metric}_animation.mp4")
+        viz.animate_scenario(
+            result.filtered_x[0, idx], result.obstacles.realization[0],
+            params.robot_radius, params.obstacle_radius,
+            hs.h[0], hs.g_tilde[0],
+            title=(f"{args.scenario.capitalize()} Scenario with "
+                   f"{metric.upper()} Safety Filtering"),
+            save_path=path)
+        print(f"Animation saved near {path}")
     return result
 
 
@@ -93,8 +143,17 @@ def run_monte_carlo(args):
     npz_path = os.path.join(args.save_dir, f"{args.scenario}_mc_data.npz")
     dct.evaluation.save_mc_result(result, npz_path)
     print(f"Saved MC arrays to {npz_path}")
-    print("The MC comparison plot (viz.compare_risk_metrics) waits for the "
-          "port of simulation/visualization.py")
+    comparison_png = f"{args.scenario}_mc_comparison.png"
+    viz = _load_viz(comparison_png)
+    if viz is not None:
+        names = list(dct.models.METRICS) + ["reference"]
+        viz.compare_risk_metrics(
+            {name: result.min_distances[:, i]
+             for i, name in enumerate(names)},
+            save_path=os.path.join(args.save_dir, comparison_png),
+            title=(f"{args.scenario}: min distance over {args.mc_runs} "
+                   f"MC runs"))
+        print(f"Saved MC comparison plot to {args.save_dir}/")
     return result
 
 
@@ -109,6 +168,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mode",
                         choices=["single", "timing_analysis", "monte_carlo"],
                         default="single")
+    parser.add_argument("--animate", action="store_true",
+                        help="single mode: also save an animation "
+                             "(needs matplotlib)")
+    parser.add_argument("--metric", choices=["mean", "cvar", "dr_cvar"],
+                        default="dr_cvar",
+                        help="single mode: the metric whose halfspaces "
+                             "are plotted")
     parser.add_argument("--sample_sizes", type=str,
                         default="10,50,100,500,1000,1500")
     parser.add_argument("--timing_runs", type=int, default=50)
@@ -131,7 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.animate and importlib.util.find_spec("matplotlib") is None:
+        parser.error("--animate needs matplotlib, which is not installed")
 
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.utils import (
         trace)

@@ -2,7 +2,8 @@
 
 The JAX package's objects arrive as numpy arrays (or anything
 `np.asarray` takes, such as a JAX array, so no JAX import is needed):
-`ObstacleData` and `MPCProblem`'s arrays and scalars.  They become the
+`ObstacleData` and `MPCProblem`'s arrays and scalars (an `MPCResult`
+goes back only).  They become the
 port's objects on a given device and dtype; the `*_numpy` functions go
 back.  The parity tests hand both implementations identical data this
 way.
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from .config.parameters import DEFAULT_DEVICE
-from .models.mpc_filter import MPCProblem
+from .models.mpc_filter import MPCProblem, MPCResult
 from .simulation.obstacles import ObstacleData
 
 MPC_ARRAYS = ("A", "B", "C", "Phi", "Gamma", "Theta", "P")
@@ -57,3 +58,9 @@ def mpc_problem_numpy(prob: MPCProblem) -> dict:
     out = {f: getattr(prob, f).detach().cpu().numpy() for f in MPC_ARRAYS}
     out.update({f: getattr(prob, f) for f in MPC_SCALARS})
     return out
+
+
+def mpc_result_numpy(res: MPCResult) -> dict:
+    """An MPCResult (one trajectory or a batch) as numpy arrays."""
+    return {f: getattr(res, f).detach().cpu().numpy()
+            for f in MPCResult._fields}

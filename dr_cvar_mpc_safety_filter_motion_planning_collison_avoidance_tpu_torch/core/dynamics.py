@@ -50,6 +50,14 @@ def simulate_linear_system(x0, u_sequence, A, B, C):
     return x_sequence, x_sequence @ C.T
 
 
+def rollout_positions(start_pos, velocity, n_steps: int, dt: float):
+    """Constant-velocity positions start + t dt velocity for t = 0 ...
+    n_steps: [..., n_steps+1, dim] from start_pos and velocity [..., dim]."""
+    t = torch.arange(n_steps + 1, dtype=start_pos.dtype,
+                     device=start_pos.device)[:, None]
+    return start_pos[..., None, :] + t * dt * velocity[..., None, :]
+
+
 def condensed_dynamics(A, B, horizon: int):
     """Condensed prediction matrices for X = Phi x0 + Gamma U.
 

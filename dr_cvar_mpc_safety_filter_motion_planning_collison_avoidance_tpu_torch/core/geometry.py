@@ -16,6 +16,11 @@ def support_function_circle(direction, radius):
     return torch.where(norm < _EPS, torch.zeros_like(norm), radius * norm)
 
 
+def minkowski_difference_circle_circle(radius_a, radius_b):
+    """Combined radius of two circles."""
+    return radius_a + radius_b
+
+
 def normalize_or_fallback(diff):
     """diff / ||diff|| along the last axis; [1, 0] where ||diff|| < 1e-10
     (the reference's degenerate fallback)."""

@@ -1,7 +1,11 @@
-"""Exact empirical CVaR (Rockafellar-Uryasev form).
+"""Empirical risk metrics: mean, VaR, CVaR.
 
-Port of `cvar_rockafellar` / `cvar_from_kth` of the JAX package's
-core/risk.py.  The k-th largest value comes from `torch.kthvalue`: the
+Port of the JAX package's core/risk.py.  Two CVaR conventions, on
+purpose: `var_metric` / `cvar_metric` are the reference's standalone
+estimators with their index convention (sort ascending, element
+ceil(N (1 - alpha)) - 1; the tail mean over samples >= VaR), and
+`cvar_rockafellar` is the exact Rockafellar-Uryasev value the halfspace
+solvers use.  The k-th largest value comes from `torch.kthvalue`: the
 JAX package's bit-bisection select exists only because XLA's SPMD
 partitioner all-gathers TopK, which does not apply here.
 """
@@ -11,6 +15,29 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def expected_value(samples, axis: int = 0):
+    """Sample mean along `axis`."""
+    return samples.mean(dim=axis)
+
+
+def var_metric(samples, alpha: float):
+    """Empirical VaR along the last axis, the reference's convention:
+    sorted ascending, the element at index ceil(N (1 - alpha)) - 1."""
+    index = int(math.ceil(samples.shape[-1] * (1.0 - alpha)))
+    return torch.sort(samples, dim=-1).values[..., index - 1]
+
+
+def cvar_metric(samples, alpha: float):
+    """Empirical CVaR as the mean of the samples >= VaR (the VaR itself
+    when that tail is empty)."""
+    var = var_metric(samples, alpha)
+    mask = samples >= var[..., None]
+    count = mask.sum(-1)
+    tail_mean = (torch.where(mask, samples, torch.zeros_like(samples)).sum(-1)
+                 / count.clamp(min=1))
+    return torch.where(count == 0, var, tail_mean)
 
 
 def cvar_k(n: int, alpha: float) -> int:

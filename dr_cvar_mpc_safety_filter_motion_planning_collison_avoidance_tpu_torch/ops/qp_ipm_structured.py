@@ -9,11 +9,19 @@ leading batch axis [B, ...] instead of under `vmap`.  Per instance:
            -s <= 0              (slack nonnegativity,    m2 rows)
 
 The slack block is eliminated analytically (its Newton block is
-diagonal), so each iteration factors ONE n x n Schur matrix
-(`cuda_linalg.batched_cholesky`) and solves two right-hand sides
-(`cuda_linalg.batched_cho_solve`).  Mehrotra predictor-corrector,
-centred start, best-iterate tracking, merit-based two-tier termination
-and the active-set polish are those of the JAX solver.
+diagonal), so each iteration factors ONE n x n Schur matrix and solves
+two right-hand sides.  Mehrotra predictor-corrector, centred (or warm)
+start, best-iterate tracking, merit-based two-tier termination and the
+active-set polish are those of the JAX solver.
+
+Every factorisation and solve goes through `_factor` / `_solve`, which
+choose per call, from dtype and shape alone (`use_linalg_kernels`), as
+the JAX package's `_dispatch_chol` / `_dispatch_solve` do: float32
+systems of n <= 64 with at most 256 right-hand sides go to
+`cuda_linalg.batched_cholesky` / `batched_cho_solve` (the hand kernels
+on a CUDA tensor); float64, a horizon above 32 (n = 2 H > 64) and the
+polish's (n + 4)-wide system of a horizon above 30 go to the plain
+versions on the same device.
 
 Batching: every lane carries its own `done` and `stall` state, and a
 lane's state is frozen once it stops, exactly as `vmap` of the JAX
@@ -29,7 +37,9 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda_linalg import batched_cho_solve, batched_cholesky
+from .cuda_linalg import (MAX_RHS, N_MAX, batched_cho_solve,
+                          batched_cho_solve_plain, batched_cholesky,
+                          batched_cholesky_plain)
 
 
 class MPCQPSolution(NamedTuple):
@@ -43,6 +53,29 @@ class MPCQPSolution(NamedTuple):
     iterations: torch.Tensor  # [B] int32 IPM iterations
     merit: torch.Tensor       # [B] achieved scaled KKT merit
     mults: tuple              # (l1 [B, m1], l2 [B, m2], l3 [B, m2])
+
+
+def use_linalg_kernels(dtype, n: int, k: int = 1) -> bool:
+    """Whether a system of size n with k right-hand sides goes to the
+    batched Cholesky / solve kernels: what they take (float32, n <=
+    N_MAX, k <= MAX_RHS).  The choice never looks at the device or at
+    whether a launch succeeded."""
+    return dtype == torch.float32 and n <= N_MAX and k <= MAX_RHS
+
+
+def _factor(S):
+    """Lower Cholesky factors of S [B, n, n]; NaN where not SPD."""
+    if use_linalg_kernels(S.dtype, S.shape[-1]):
+        return batched_cholesky(S)
+    return batched_cholesky_plain(S)
+
+
+def _solve(L, r):
+    """Solve L L' x = r; r is [B, n] or [B, n, k]."""
+    k = 1 if r.dim() == L.dim() - 1 else r.shape[-1]
+    if use_linalg_kernels(L.dtype, L.shape[-1], k):
+        return batched_cho_solve(L, r)
+    return batched_cho_solve_plain(L, r)
 
 
 def _mv(M, v):
@@ -125,7 +158,7 @@ def _where(cond, new, old):
 
 def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                  max_iters: int = 60, tol: float | None = None,
-                 box_theta=None) -> MPCQPSolution:
+                 warm=None, box_theta=None) -> MPCQPSolution:
     """Solve a batch of the slack-structured QPs above.
 
     Shapes: q_u [B, n], h1 [B, m1], A [B, m2, n], b [B, m2];
@@ -136,6 +169,14 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     [I; -I; T; -T] with T = box_theta; every per-iteration product with
     G_u then uses the structure.  G_u must still be given (the polish
     and the reported residuals use its dense rows).
+
+    `warm` (optional): a `(u, s, l1, l2, l3)` tuple, [B, ...] each,
+    typically the iterates (`sol.u`, `sol.s`, `*sol.mults`) of a related
+    solve (same shapes, nearby data), used as the interior-point start
+    after the interiority shifts: slacks and multipliers floored at
+    1e-2, multipliers clipped to [1e-6, 1e6].  Termination, best-iterate
+    tracking and the polish are the same, so a bad start costs
+    iterations, never accuracy.
 
     The IPM's answer goes through the active-set Newton polish
     (`_polish`), which takes a float32 iterate from the IPM's merit floor
@@ -175,13 +216,26 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
         rd_s = (p_ss * s + q_s - l2 - l3).abs().amax(-1)
         return (mu + viol + torch.maximum(rd_u, rd_s)) / q_scale, mu
 
-    # Centred cold start.
-    u = q_u.new_zeros((Bsz, n))
-    s = q_u.new_zeros((Bsz, m2))
-    w1 = torch.clamp(h1, min=1.0)
-    w2 = torch.clamp(b, min=1.0)
-    w3 = torch.ones_like(s)
-    l1, l2, l3 = (torch.clamp(1.0 / w, 1e-6, 1e6) for w in (w1, w2, w3))
+    if warm is None:
+        # Centred cold start.
+        u = q_u.new_zeros((Bsz, n))
+        s = q_u.new_zeros((Bsz, m2))
+        w1 = torch.clamp(h1, min=1.0)
+        w2 = torch.clamp(b, min=1.0)
+        w3 = torch.ones_like(s)
+        l1, l2, l3 = (torch.clamp(1.0 / w, 1e-6, 1e6) for w in (w1, w2, w3))
+    else:
+        # A related solve's iterates, moved back into the interior: the
+        # large floor keeps the central-path mu moderate, which lets a
+        # start that is slightly off converge instead of jamming on the
+        # boundary.
+        floor = 1e-2
+        u, s, l1, l2, l3 = (t.to(dtype) for t in warm)
+        s = torch.relu(s)
+        w1 = torch.clamp(h1 - gu.mv(u), min=floor)
+        w2 = torch.clamp(b - _mv(A, u) + s, min=floor)
+        w3 = torch.clamp(s, min=floor)
+        l1, l2, l3 = (torch.clamp(t, floor, 1e6) for t in (l1, l2, l3))
     x = [u, s, w1, w2, w3, l1, l2, l3]          # the iterate
     best_merit = torch.full((Bsz,), 1e30, dtype=dtype, device=device)
     best = list(x)
@@ -216,14 +270,14 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
         d2_eff = d2 - d2 * d2 / m_ss
         S = (P_uu + gu.quad(d1)
              + (A.transpose(-1, -2) * d2_eff[:, None, :]) @ A + reg * eye)
-        Lchol = batched_cholesky(S)
+        Lchol = _factor(S)
 
         def newton(rc1, rc2, rc3):
             t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
             rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
                    - _rmv(A, d2 * r_p2 - rc2 / w2)
                    + _rmv(A, d2 * t_s / m_ss))
-            du = batched_cho_solve(Lchol, rhs)
+            du = _solve(Lchol, rhs)
             Adu = _mv(A, du)
             ds = (t_s + d2 * Adu) / m_ss
             dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
@@ -351,16 +405,16 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     Eg = torch.gather(E, 1, idx[:, :, None].expand(Bsz, k_sel, n))
     eg = torch.gather(e, 1, idx)
 
-    LK = batched_cholesky(K)
-    KiEq = batched_cho_solve(
+    LK = _factor(K)
+    KiEq = _solve(
         LK, torch.cat([Eg.transpose(1, 2), q_t[:, :, None]], dim=2))
     KiEg, Kiq = KiEq[:, :, :k_sel], KiEq[:, :, k_sel]
     Mg = (va[:, :, None] * (Eg @ KiEg) * va[:, None, :]
           + torch.diag_embed(1.0 - va)
           + reg * torch.eye(k_sel, dtype=dtype, device=device))
     rhs = va * (-_mv(Eg, Kiq) - eg)
-    LM = batched_cholesky(Mg)
-    nug = va * batched_cho_solve(LM, rhs)
+    LM = _factor(Mg)
+    nug = va * _solve(LM, rhs)
     u_p = -(Kiq + _mv(KiEg, nug))
 
     # KKT iterative refinement of u and nu against
@@ -370,8 +424,8 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     for _ in range(2):
         r1 = (_mv(K_h, u_h) + q_h + _rmv(Eg_h, nu_h)).to(dtype)
         r2 = (va_h * (_mv(Eg_h, u_h) - eg_h)).to(dtype)
-        t = batched_cho_solve(LK, r1)
-        dnu = va * batched_cho_solve(LM, r2 - va * _mv(Eg, t))
+        t = _solve(LK, r1)
+        dnu = va * _solve(LM, r2 - va * _mv(Eg, t))
         u_h = u_h - (t + _mv(KiEg, dnu)).to(acc)
         nu_h = nu_h + dnu.to(acc)
     u_p, nug = u_h.to(dtype), nu_h.to(dtype)

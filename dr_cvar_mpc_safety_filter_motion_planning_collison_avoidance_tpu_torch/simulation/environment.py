@@ -3,8 +3,10 @@ distance to collision.
 
 Port of the JAX package's simulation/environment.py, batched over
 scenarios.  Every (scenario, timestep, obstacle) halfspace of all three
-risk metrics comes from ONE call of the all-metrics kernel
-(ops/cuda_kernels.py) on a flat [S * n_steps * n_obs, N, 2] batch.
+risk metrics comes from ONE call on a flat [S * n_steps * n_obs, N, 2]
+batch: of the all-metrics kernel (ops/cuda_kernels.py) for what it
+takes, of its plain version on the same device otherwise
+(`use_halfspace_kernel`, the JAX package's `_use_pallas_auto` rule).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from ..config.parameters import DEFAULT_DEVICE
 from ..core.dynamics import create_double_integrator_matrices
-from ..ops.cuda_kernels import all_metrics_halfspaces
+from ..ops.cuda_kernels import (MAX_N_SAMPLES, all_metrics_halfspaces,
+                                all_metrics_halfspaces_plain)
 from ..ops.halfspace import Halfspace
 
 
@@ -90,6 +93,14 @@ def halfspace_rows(env: Environment, obstacle_samples, x_ref):
     return rows, ego.reshape(-1, 2).contiguous(), (S, n_steps, n_obs)
 
 
+def use_halfspace_kernel(dtype, n_samples: int) -> bool:
+    """Whether rows of `n_samples` samples go to the all-metrics kernel:
+    what it takes (float32, at most MAX_N_SAMPLES samples a row).  Other
+    rows (float64, longer rows) take the composed closed forms.  The
+    choice never looks at the device or at whether a launch succeeded."""
+    return dtype == torch.float32 and n_samples <= MAX_N_SAMPLES
+
+
 def compute_safe_halfspaces_for_trajectory(env: Environment,
                                            obstacle_samples, x_ref
                                            ) -> SafeHalfspaces:
@@ -99,9 +110,11 @@ def compute_safe_halfspaces_for_trajectory(env: Environment,
     [S, n_steps, n_obs].
     """
     rows, ego, shape = halfspace_rows(env, obstacle_samples, x_ref)
-    out = all_metrics_halfspaces(rows, ego, env.alpha, env.delta,
-                                 env.epsilon, env.robot_radius,
-                                 env.obstacle_radius)
+    solve = (all_metrics_halfspaces
+             if use_halfspace_kernel(rows.dtype, rows.shape[1])
+             else all_metrics_halfspaces_plain)
+    out = solve(rows, ego, env.alpha, env.delta, env.epsilon,
+                env.robot_radius, env.obstacle_radius)
     h = out.h.reshape(shape + (2,))
     return SafeHalfspaces(
         mean=Halfspace(out.h_mean.reshape(shape + (2,)),

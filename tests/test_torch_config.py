@@ -84,16 +84,19 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert "NO_JAX_OK" in proc.stdout
 
 
-def test_cli_single_mode(capsys):
+def test_cli_single_mode(capsys, tmp_path):
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch import cli
 
     result = cli.main(["--scenario", "intersection", "--mode", "single",
-                       "--device", "cpu", "--dtype", "float64"])
+                       "--device", "cpu", "--dtype", "float64",
+                       "--save_dir", str(tmp_path)])
     out = capsys.readouterr().out
     for metric in ("mean", "cvar", "dr_cvar"):
         assert f"{metric} status: optimal" in out
     assert out.count("min distance") == 4
     assert result.filtered_u.shape == (1, 3, 30, 2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "intersection_dr_cvar_halfspaces.png", "intersection_results.png"]
     with pytest.raises(SystemExit):        # not a mode of the CLI
         cli.main(["--mode", "animate"])
 
@@ -108,6 +111,7 @@ _DEVICE_DEFAULTS = [
     ("convert", "obstacle_data"),
     ("convert", "mpc_problem"),
     ("simulation.environment", "Environment"),
+    ("models.mpc_filter", "filter_trajectory"),
 ]
 
 

@@ -474,3 +474,133 @@ def test_monte_carlo_on_cuda_uses_the_kernels(cuda):
     assert min(fn.launches - b for fn, b in zip(kernels, before)) > 0
     assert bool(torch.isfinite(first.min_distances).all())
     assert torch.equal(first.min_distances, second.min_distances)
+
+
+def _kernel_counts():
+    return (ck.all_metrics_halfspaces.launches, cl.batched_cholesky.launches,
+            cl.batched_cho_solve.launches)
+
+
+def test_float64_runs_on_the_card_without_the_kernels(cuda):
+    """float64 through `run_single_scenario` on the card: the closed
+    forms and the plain factorisations on the device (no kernel launch,
+    no error), within 1e-6 of the CPU float64 run on the same obstacles."""
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("multi_obstacle")
+    before = _kernel_counts()
+    gpu = pt.models.run_single_scenario(scenario, params, seed=42,
+                                        dtype=torch.float64, device=cuda)
+    assert _kernel_counts() == before
+    assert gpu.filtered_u.dtype == torch.float64
+    assert gpu.filtered_u.device.type == "cuda"
+    assert bool(gpu.qp_converged.all())
+    cpu = pt.models.run_scenario_with_obstacles(
+        pt.models.make_statics(scenario, params, torch.float64, "cpu"),
+        pt.simulation.ObstacleData(*(t.cpu() for t in gpu.obstacles)),
+        scenario.ego_start, scenario.ego_goal, params.ego_velocity)
+    torch.testing.assert_close(gpu.filtered_u.cpu(), cpu.filtered_u, rtol=0,
+                               atol=1e-6)
+
+
+def test_wrappers_still_refuse_what_the_call_sites_keep_away(cuda):
+    """The dispatch lives at the call sites; a wrapper handed a CUDA
+    tensor it cannot take raises as before."""
+    with pytest.raises(ValueError, match="49152"):
+        ck.all_metrics_halfspaces(
+            torch.zeros(1, ck.MAX_N_SAMPLES + 1, 2, device=cuda),
+            torch.zeros(1, 2, device=cuda), *ARGS)
+    with pytest.raises(ValueError, match="49152"):
+        ck.fused_drcvar_halfspace(
+            torch.zeros(1, ck.MAX_N_SAMPLES + 1, 2, device=cuda),
+            torch.zeros(1, 2, device=cuda), *ARGS)
+    L = torch.eye(65, device=cuda).expand(2, 65, 65).contiguous()
+    with pytest.raises(ValueError, match="n <= 64"):
+        cl.batched_cho_solve(L, torch.zeros(2, 65, device=cuda))
+    L = torch.eye(8, device=cuda).expand(2, 8, 8).contiguous()
+    with pytest.raises(ValueError, match="k <= 256"):
+        cl.batched_cho_solve(L, torch.zeros(2, 8, 257, device=cuda))
+    with pytest.raises(TypeError):
+        cl.batched_cho_solve(L.double(), torch.zeros(2, 8, device=cuda,
+                                                     dtype=torch.float64))
+
+
+@pytest.mark.parametrize("horizon,kernel_sizes", [(31, {62}), (33, set())])
+def test_long_horizon_on_the_card(cuda, horizon, kernel_sizes):
+    """Horizons whose systems outgrow the kernels run on the card in
+    float32, within 1e-4 of the CPU float64 run on the same obstacles;
+    at 31 the n = 62 systems still launch the kernels."""
+    import dataclasses
+    params = dataclasses.replace(pt.config.get_parameters("custom"),
+                                 horizon=horizon)
+    scenario = pt.config.get_scenario_config("head_on")
+    before = _kernel_counts()
+    gpu = pt.models.run_single_scenario(scenario, params, seed=42,
+                                        dtype=torch.float32, device=cuda)
+    launched = [a - b for a, b in zip(_kernel_counts(), before)]
+    assert launched[0] == 1
+    assert (launched[1] > 0) == (launched[2] > 0) == bool(kernel_sizes)
+    assert bool(gpu.qp_converged.all())
+    cpu = pt.models.run_scenario_with_obstacles(
+        pt.models.make_statics(scenario, params, torch.float64, "cpu"),
+        pt.simulation.ObstacleData(*(t.cpu().double()
+                                     for t in gpu.obstacles)),
+        scenario.ego_start, scenario.ego_goal, params.ego_velocity)
+    torch.testing.assert_close(gpu.filtered_u.cpu().double(), cpu.filtered_u,
+                               rtol=0, atol=1e-4)
+
+
+def _filter_case(device, dtype):
+    """head_on on the seed-42 streams: the problem and, per metric, the
+    inputs of `filter_trajectory` from the CPU float64 pipeline run."""
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("head_on")
+    obs = reference_rng_obstacles(scenario, params.sim_time, params.dt,
+                                  params.num_samples)
+    run = pt.models.run_scenario_with_obstacles(
+        pt.models.make_statics(scenario, params, torch.float64, "cpu"),
+        pt.convert.obstacle_data(obs, torch.float64, "cpu", True),
+        scenario.ego_start, scenario.ego_goal, params.ego_velocity)
+    prob = pt.models.make_statics(scenario, params, dtype, device).mpc
+    x0 = np.zeros(4)
+    x0[:2] = scenario.ego_start
+    return prob, run, x0
+
+
+def test_filter_trajectory_on_the_card(cuda):
+    """`filter_trajectory` in float32 on the card against the CPU float64
+    call on the same inputs (1e-4), one metric a lane; kernels 2 and 3
+    launch; a forced fallback replays u_ref exactly."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.models.pipeline import (
+        INPUT_BOUNDS, STATE_BOUNDS)
+    results = {}
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        prob, run, x0 = _filter_case(device, dtype)
+        hs = [run.halfspaces.by_metric(m) for m in pt.models.METRICS]
+        args = (np.broadcast_to(x0, (3, 4)).copy(),
+                run.x_ref.expand(3, -1, -1), run.u_ref.expand(3, -1, -1),
+                torch.cat([h.h for h in hs]),
+                torch.cat([h.g_tilde for h in hs]))
+        before = _kernel_counts()
+        results[dtype] = pt.filter_trajectory(
+            prob, *args, input_bounds=INPUT_BOUNDS,
+            position_bounds=STATE_BOUNDS, device=device)
+        launched = [a - b for a, b in zip(_kernel_counts(), before)]
+        if device == "cpu":
+            assert launched == [0, 0, 0]
+            torch.testing.assert_close(results[dtype].u_filtered,
+                                       run.filtered_u[0], rtol=0, atol=1e-9)
+        else:
+            assert launched[0] == 0 and min(launched[1:]) > 0, launched
+            fb = pt.filter_trajectory(
+                prob, *args, input_bounds=INPUT_BOUNDS,
+                position_bounds=STATE_BOUNDS, max_iters=1, device=device)
+            assert bool(fb.used_fallback.all())
+            assert torch.equal(fb.u_filtered.cpu(),
+                               run.u_ref.expand(3, -1, -1).float())
+    gpu, cpu = results[torch.float32], results[torch.float64]
+    assert gpu.u_filtered.device.type == "cuda"
+    assert bool(gpu.status.all()) and not bool(gpu.used_fallback.any())
+    torch.testing.assert_close(gpu.u_filtered.cpu().double(), cpu.u_filtered,
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(gpu.x_filtered.cpu().double(), cpu.x_filtered,
+                               rtol=0, atol=1e-4)

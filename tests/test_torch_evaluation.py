@@ -256,7 +256,8 @@ def test_cli_monte_carlo_smoke(tmp_path, capsys):
     loaded = tmc.load_mc_result(str(tmp_path / "head_on_mc_data.npz"))
     assert torch.equal(loaded.min_distances, result.min_distances)
     assert out.count("collision_prob=") == 4
-    assert "visualization" in out
+    assert (tmp_path / "head_on_mc_comparison.png").stat().st_size > 0
+    assert "Saved MC comparison plot" in out
     assert (prof / "trace.json").exists()
 
 
