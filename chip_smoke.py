@@ -10,7 +10,10 @@ and drives the port's paths once each at a size users run: the scenario
 pipeline (`run_scenario_core`, 256 multi_obstacle scenarios with 1000
 samples per obstacle), the kernel benchmark (`experiments.kbench`,
 32768 rows of 1000 samples), the Monte Carlo study (`cli --mode
-monte_carlo --mc_runs 300`) and the timing sweep at the JAX defaults.
+monte_carlo --mc_runs 300`) and the timing sweep at the JAX defaults,
+the same Monte Carlo split over a mesh of processes (`--mesh`, and two
+ranks sharing the card), the sample-parallel solve at 1,024 rows of
+100,000 samples, the generic IPM at 768 QPs and the QP planner.
 It imports torch, numpy, scipy, the port and the numpy-only helpers in
 tests/ -- never jax.
 
@@ -39,11 +42,24 @@ is non-zero):
      40;
   8. the entry points: Monte Carlo (twice from one seed, launch counts
      from 0, a CPU float64 re-run of its first runs) and the timing
-     sweep.
+     sweep;
+  9. parallel/ and the generic solvers, counts from 0 before each drive:
+     `[mesh]` the CLI's Monte Carlo with --mesh data=1 in this process on
+     NCCL (equal to phase 8's run, one collective), the timing sweep's
+     files with and without it, then two spawned ranks on cuda:0 over
+     Gloo at data = 2 (each rank's block equal to its runs solved alone,
+     float64 split against flat, the float32 distance printed);
+     `[sample_parallel]` the same two ranks at samples = 2 on 1,024 x
+     100,000 samples (g against float64, the k-th value bit-equal to
+     torch.kthvalue, rounds and collectives); `[qp_ipm]`
+     `solve_qp_batched` on 768 random QPs (n = 60, m = 240) against CPU
+     float64; `[planner]` `plan_trajectory` with bounds at H = 30 against
+     the scipy oracle; both launch kernels 2 and 3.
 The line before the last is the kernels' JSON record (for every kernel
 but `minimal_planes` `ms` is the device time as a CUDA graph of launches
 and `wrapper_ms` the time launch by launch; the solve's top-level numbers
-are k = 1's and `k65` holds k = 65's); the last line is
+are k = 1's and `k65` holds k = 65's; kernels 2 and 3 also list the
+launches of phase 9's generic IPM and planner); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -73,6 +89,18 @@ BATCH = dict(scenarios=256, n_samples=1000, sim_time=6.0, qp_iters=35,
              qp_tol=3e-5, seed=0, recheck=8)
 MC = dict(runs=300, recheck=8, tol=1e-3)
 CHUNKED = dict(qps=2048, chunk=512)   # filter_core_batched against flat
+# Phase 9: Monte Carlo over two ranks sharing the card (Gloo), its float64
+# check, the sample-parallel solve at the JAX module's N >> 1e5 setting,
+# the generic IPM at the batch run's QP size, the planner at H = 30.
+MESH = dict(runs=300, f64_runs=16, f64_tol=1e-9, timeout=600)
+SAMPLE_PAR = dict(rows=1024, n=100_000, seed=0, rtol=1e-5)
+QP = dict(batch=768, n=60, m=240, seed=0, tol=3e-5,
+          merit_rounding=1.1)   # see phase_generic_qp
+PLAN = dict(x0=(-4.0, 0.0, 0.0, 0.0), goal=(4.0, 0.0, 0.0, 0.0),
+            u_lim=0.3, x_lim=(10.0, 10.0, 5.0, 5.0), obj_rtol=1e-5,
+            viol=1e-5)
+TIMING_CLI = ["--mode", "timing_analysis", "--sample_sizes", "10,1000",
+              "--timing_runs", "5", "--device", "cuda"]
 # The JAX halfspace bench's shapes (bench.py) for the DR-CVaR solve.
 DRCVAR_SHAPES = ((32768, 1000), (8192, 4096), (1, 1000))
 # Operation counts a sample for the halfspace kernels' bounds (all of
@@ -1271,6 +1299,303 @@ def phase_entry_points(pt, torch, dev, card):
         gate(np.isfinite([dr, cvar, setup]).all(), "timing: not finite")
         print(f"[timing] N={n}: solve ms per instance dr_cvar {dr:.6f}, "
               f"cvar {cvar:.6f}, setup {setup:.6f} (50 runs, 20 repeats)")
+    return first
+
+
+def mesh_ranks(rank, world):
+    """Body of each of phase 9's two spawned ranks, which share cuda:0
+    over Gloo (NCCL refuses two ranks on one card): Monte Carlo at
+    data = 2 with its checks, then the sample-parallel solve at
+    samples = 2.  Returns plain numbers for the parent to gate."""
+    import torch
+
+    import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as pt
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    pt.models.pipeline.pin_matmul_precision(dev)
+    par, mc = pt.parallel, pt.evaluation.monte_carlo
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("head_on")
+    n_steps = int(params.sim_time / params.dt)
+
+    def monte_carlo(n_runs, dtype, mesh=None):
+        return mc.run_monte_carlo_simulation(scenario, params, n_runs=n_runs,
+                                             seed=42, dtype=dtype,
+                                             device=dev, mesh=mesh)
+
+    out = {}
+    mesh = par.make_mesh(2, 1, device=dev)
+    monte_carlo(MESH["runs"], torch.float32, mesh)       # warm-up
+    reset_launches(pt)
+    par.CENSUS.clear()
+    split, wall = timed_ms(torch, lambda: monte_carlo(
+        MESH["runs"], torch.float32, mesh))
+    out["wall_ms"], out["launches"] = wall, read_launches(pt)
+    out["collectives"] = sum(par.CENSUS.values())
+    # This rank's block, solved alone as one batch of the same size.
+    b = MESH["runs"] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    statics = pt.models.make_statics(scenario, params, torch.float32, dev)
+    alone = pt.models.run_scenario_with_obstacles(
+        statics, mc.run_obstacles(statics, mc.run_seeds(42, MESH["runs"])[rows],
+                                  scenario, params, n_steps),
+        scenario.ego_start, scenario.ego_goal, params.ego_velocity)
+    md, conv = mc.reduce_runs(alone)
+    out["block_equal"] = (torch.equal(split.min_distances[rows], md)
+                          and torch.equal(split.qp_converged[rows], conv))
+    flat = monte_carlo(MESH["runs"], torch.float32)
+    out["f32_vs_flat"] = float((split.min_distances - flat.min_distances)
+                               .abs().max())
+    out["f32_probs_equal"] = torch.equal(split.collision_probs,
+                                         flat.collision_probs)
+    out["f64_vs_flat"] = float(
+        (monte_carlo(MESH["f64_runs"], torch.float64, mesh).min_distances
+         - monte_carlo(MESH["f64_runs"], torch.float64).min_distances)
+        .abs().max())
+    out["probs"] = split.collision_probs.tolist()
+
+    # Sample-parallel: each rank holds the whole [B, N, 2] (the host
+    # value) and solves its half of N.
+    mesh_s = par.make_mesh(1, 2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SAMPLE_PAR["seed"])
+    rows_n, n = SAMPLE_PAR["rows"], SAMPLE_PAR["n"]
+    samples = (torch.tensor([0.5, 0.0], device=dev)
+               + 0.1 * torch.randn(rows_n, n, 2, device=dev, generator=gen))
+    h = torch.nn.functional.normalize(
+        torch.randn(rows_n, 2, device=dev, generator=gen), dim=-1)
+    par.CENSUS.clear()
+    (g, rounds), wall = timed_ms(torch, lambda: par.dr_cvar_g_sample_parallel(
+        mesh_s, samples, h, *ARGS, return_rounds=True))
+    out["sp"] = dict(wall_ms=wall, rounds=rounds,
+                     collectives=sum(par.CENSUS.values()),
+                     mb=samples.numel() * 4 / 1e6)
+    g_ref, _ = pt.ops.dr_cvar_g_star(samples.double(), h.double(), *ARGS)
+    out["sp"]["rel"] = float(((g.double() - g_ref).abs() / g_ref.abs()).max())
+    k = max(min(int(np.ceil(ARGS[0] * n - 1e-12)), n), 1)
+    half = n // 2
+    x_local = -pt.ops.halfspace._project(
+        samples[:, rank * half:(rank + 1) * half], h)
+    v, _, _ = par.sample_parallel.distributed_kth_largest(x_local, k, n,
+                                                          mesh_s)
+    x = (-pt.ops.halfspace._project(samples, h)).to(torch.float32)
+    out["sp"]["kth_equal"] = torch.equal(
+        v, torch.kthvalue(x, n - k + 1, dim=-1).values)
+    return out
+
+
+def phase_mesh(pt, torch, dev, card, mc_plain):
+    """9a. parallel/ on the card: the CLI's --mesh data=1 in this process
+    (NCCL), the timing sweep's files with and without it, then two
+    spawned ranks on cuda:0 (Gloo)."""
+    import torch.distributed as dist
+    import torch_parallel_worker as workers
+
+    argv = ["--mode", "monte_carlo", "--mc_runs", str(MC["runs"]),
+            "--device", "cuda", "--mesh", "data=1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(pt)
+        pt.parallel.CENSUS.clear()
+        res, wall = timed_ms(torch, lambda: pt.cli.main(argv + ["--save_dir",
+                                                              tmp]))
+        launches, census = read_launches(pt), dict(pt.parallel.CENSUS)
+    gate(not dist.is_initialized(), "--mesh data=1: the CLI left its "
+         "process group open")
+    gate(min(launches.values()) > 0,
+         f"--mesh data=1: a kernel never launched: {launches}")
+    gate(sum(census.values()) == 1,
+         f"--mesh data=1: collectives {census}, expected one gather")
+    gate(torch.equal(res.min_distances, mc_plain.min_distances)
+         and torch.equal(res.qp_converged, mc_plain.qp_converged),
+         "--mesh data=1: Monte Carlo differs from phase 8's meshless run")
+    probe = pt.parallel.make_mesh(1, device=dev)
+    backend = dist.get_backend()
+    probe.close()
+    gate(backend == "nccl", f"--mesh data=1 on the card: backend {backend}")
+    print(f"[mesh] cli --mode monte_carlo --mc_runs {MC['runs']} --mesh data=1 "
+          f"--device cuda in this process ({backend}, a world of one): "
+          f"equal to phase 8's meshless run; collectives {census}; launches "
+          f"{launches}; wall {wall:.1f} ms (CLI, host clock, save included) "
+          f"on {card}")
+
+    for extra in ([], ["--mesh", "data=1"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            pt.cli.main(TIMING_CLI + extra + ["--save_dir", tmp])
+            files = sorted(p.name for p in Path(tmp).iterdir())
+        gate({"timing_comparison.csv", "timing_data.txt"} <= set(files),
+             f"timing_analysis {extra}: wrote {files}")
+        print(f"[mesh] cli --mode timing_analysis {' '.join(extra) or '(no mesh)'}"
+              f" --save_dir: wrote {', '.join(files)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = workers.run_cluster(2, mesh_ranks, store_dir=tmp,
+                                    timeout=MESH["timeout"])
+        spawn_s = time.perf_counter() - t0
+    half = MESH["runs"] // 2
+    for rank, out in enumerate(ranks):
+        gate(min(out["launches"].values()) > 0,
+             f"rank {rank}: a kernel never launched: {out['launches']}")
+        gate(out["collectives"] == 1,
+             f"rank {rank}: {out['collectives']} collectives, expected 1")
+        gate(out["block_equal"], f"rank {rank}: its {half} runs differ from "
+             "the same runs solved alone")
+        gate(out["f64_vs_flat"] < MESH["f64_tol"],
+             f"rank {rank}: float64 split {out['f64_vs_flat']:.3e} from flat")
+        sp = out["sp"]
+        gate(sp["rel"] < SAMPLE_PAR["rtol"],
+             f"rank {rank}: sample-parallel g {sp['rel']:.3e} from float64")
+        gate(sp["kth_equal"], f"rank {rank}: the k-th value differs from "
+             "torch.kthvalue")
+        gate(sp["collectives"] == sp["rounds"] + 4,
+             f"rank {rank}: {sp['collectives']} collectives for "
+             f"{sp['rounds']} rounds")
+    r0 = ranks[0]
+    print(f"[mesh] 2 spawned ranks on cuda:0 over Gloo ({spawn_s:.1f} s with "
+          f"start-up): Monte Carlo {MC['runs']} runs at data = 2, launches "
+          f"{[r['launches'] for r in ranks]}, one collective a rank; each "
+          f"block of {half} runs equal to the same runs solved alone; wall "
+          f"{r0['wall_ms']:.1f} / {ranks[1]['wall_ms']:.1f} ms a rank on {card}")
+    print(f"[mesh] float64, {MESH['f64_runs']} runs: split "
+          f"{max(r['f64_vs_flat'] for r in ranks):.3e} from flat (gate "
+          f"{MESH['f64_tol']}); float32, {MESH['runs']} runs: split "
+          f"{r0['f32_vs_flat']:.3e} from flat (not gated: cuBLAS rounds a "
+          f"lane's products by the batch size), collision probabilities "
+          f"{'equal' if r0['f32_probs_equal'] else 'differ'} "
+          f"({', '.join(f'{p:.3f}' for p in r0['probs'])})")
+    sp = r0["sp"]
+    print(f"[sample_parallel] {SAMPLE_PAR['rows']} rows x {SAMPLE_PAR['n']} "
+          f"samples ({sp['mb']:.0f} MB float32) at samples = 2 on cuda:0 "
+          f"over Gloo: g {max(r['sp']['rel'] for r in ranks):.3e} relative "
+          f"from dr_cvar_g_star in float64 on the card (gate "
+          f"{SAMPLE_PAR['rtol']}); the k-th value bit-equal to "
+          f"torch.kthvalue; {sp['rounds']} rounds, {sp['collectives']} "
+          f"collectives; wall {sp['wall_ms']:.1f} / "
+          f"{ranks[1]['sp']['wall_ms']:.1f} ms a rank on {card}")
+
+
+def qp_merit64(P, q, G, h, z, lam):
+    """The generic IPM's scaled KKT merit of (z, lam), evaluated in
+    float64 with the true slacks h - Gz (the solver's own merit uses its
+    slack iterate): (mu + violation + dual residual) / max(max|q|, 1) in
+    the row-equilibrated geometry; and the duality gap f(z) - d(lam),
+    which bounds f(z) - f* from above; and |lam| times the largest
+    violation, which bounds f* - f(z) (z may violate by rounding)."""
+    rs = np.maximum(np.abs(G).max(-1), 1e-8)
+    Gs, hs, ls = G / rs[..., None], h / rs, lam * rs
+    slack = hs - np.einsum("bmn,bn->bm", Gs, z)
+    r = np.einsum("bij,bj->bi", P, z) + q + np.einsum("bmn,bm->bn", Gs, ls)
+    merit = (((ls * np.maximum(slack, 0)).sum(-1) / G.shape[1]
+              + np.maximum(-slack, 0).max(-1) + np.abs(r).max(-1))
+             / np.maximum(np.abs(q).max(-1), 1.0))
+    gap = (ls * slack).sum(-1) + 0.5 * np.einsum(
+        "bi,bi->b", r, np.linalg.solve(P, r[..., None])[..., 0])
+    excess = np.maximum(-slack, 0).max(-1) * np.abs(ls).sum(-1)
+    return merit, gap, excess
+
+
+def phase_generic_qp(pt, torch, dev, card) -> dict:
+    """9b. The generic IPM (`solve_qp_batched`) and `plan_trajectory` on
+    the card; both reach kernels 2 and 3.  Returns their launches."""
+    from scipy.optimize import minimize
+
+    rng = np.random.default_rng(QP["seed"])
+    B, n, m = QP["batch"], QP["n"], QP["m"]
+    L = rng.normal(size=(B, n, n))
+    P = L @ L.transpose(0, 2, 1) + np.eye(n)
+    q = rng.normal(size=(B, n))
+    G = rng.normal(size=(B, m, n))
+    h = rng.uniform(0.1, 2.0, size=(B, m))
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (P, q, G, h)]
+    pt.ops.solve_qp_batched(*args)                        # warm-up
+    reset_launches(pt)
+    sol, wall = timed_ms(torch, lambda: pt.ops.solve_qp_batched(*args))
+    qp_launches = gate_launched(pt, LINALG, "solve_qp_batched")
+    ref = pt.ops.solve_qp_batched(*(torch.as_tensor(a) for a in (P, q, G, h)))
+    conv = sol.converged.cpu().numpy()
+    gate(conv.mean() > 0.95, f"solve_qp_batched: converged {conv.mean():.4f}")
+    z, lam = (t.cpu().double().numpy() for t in (sol.z, sol.lam))
+    merit, gap, excess = qp_merit64(P, q, G, h, z, lam)
+    # The solver accepts on its float32 merit; evaluated again in float64
+    # it moves by that evaluation's rounding (CPU float32: median 0.24%,
+    # at most 6.2% on these lanes), hence the allowance.
+    limit = 10 * QP["tol"] * QP["merit_rounding"]
+    gate(merit[conv].max() < limit, f"solve_qp_batched: float64 merit "
+         f"{merit[conv].max():.3e} of a converged lane (limit {limit:.3e})")
+    # The objective: 1e-4 relative is below the float32 solver's floor (a
+    # merit of 1e-5 leaves a duality gap of ~1e-3 relative); what holds is
+    # that the float64 optimum lies within the card's own bracket
+    # f(z) - gap <= f* <= f(z) + |lam| viol.
+    f32 = 0.5 * np.einsum("bi,bij,bj->b", z, P, z) + (q * z).sum(-1)
+    f64 = ref.obj.numpy()
+    both = conv & ref.converged.numpy()
+    slack = 1e-9 * np.abs(f64)
+    inside = ((f64 >= f32 - gap - slack)
+              & (f64 <= f32 + excess + slack))[both]
+    gate(inside.all(), f"solve_qp_batched: {int((~inside).sum())} lanes whose "
+         "float64 optimum lies outside their duality bracket")
+    rel = np.abs(sol.obj.cpu().double().numpy() - f64) / np.abs(f64)
+    z_dist = np.abs(z - ref.z.numpy())[both].max()
+    print(f"[qp_ipm] solve_qp_batched, {B} seeded random QPs (n = {n}, m = {m},"
+          f" float32) on the card: converged {conv.mean():.4f}, iterations "
+          f"mean {sol.iterations.float().mean().item():.4f} max "
+          f"{int(sol.iterations.max())}, wall {wall:.1f} ms on {card}; "
+          f"launches {qp_launches}")
+    print(f"[qp_ipm] converged lanes: float64 merit at most "
+          f"{merit[conv].max():.3e} (10 tol = {10 * QP['tol']:.1e}); the CPU "
+          f"float64 optimum inside every lane's duality bracket; objective "
+          f"{rel[both].max():.3e} relative from CPU float64 at most "
+          f"({int((rel[both] > 1e-4).sum())} of {int(both.sum())} lanes above "
+          f"1e-4, not gated: the float32 floor), z {z_dist:.3e} (not gated)")
+
+    dt, H = 0.2, 30
+    A, Bm, C = pt.core.dynamics.create_double_integrator_matrices(
+        dt, dtype=torch.float32, device=dev)
+    planner = pt.models.Planner(A, Bm, C, 2.0, 1.0, H, dt)
+    u_lim, x_lim = np.full(2, PLAN["u_lim"]), np.asarray(PLAN["x_lim"])
+    bounds = dict(input_bounds=(-u_lim, u_lim), state_bounds=(-x_lim, x_lim),
+                  has_bounds=True)
+    reset_launches(pt)
+    (x_ref, u_ref, info), wall = timed_ms(torch, lambda: pt.models
+                                          .plan_trajectory(planner, PLAN["x0"],
+                                                           PLAN["goal"],
+                                                           **bounds))
+    plan_launches = gate_launched(pt, LINALG, "plan_trajectory")
+    gate(bool(info["converged"]), "plan_trajectory: not converged")
+    # The scipy oracle on the same condensed QP (float64).
+    Phi, Gam = (t.numpy() for t in pt.core.dynamics.condensed_dynamics(
+        A.cpu().double(), Bm.cpu().double(), H))
+    n_u = Gam.shape[1]
+    Pq = 2 * (2.0 * Gam.T @ Gam + np.eye(n_u))
+    px = Phi @ np.asarray(PLAN["x0"])
+    qq = 4.0 * Gam.T @ (px - np.tile(PLAN["goal"], H))
+    Gq = np.vstack([np.eye(n_u), -np.eye(n_u), Gam, -Gam])
+    hq = np.concatenate([np.tile(u_lim, H), np.tile(u_lim, H),
+                         np.tile(x_lim, H) - px, px + np.tile(x_lim, H)])
+    oracle = minimize(lambda v: 0.5 * v @ Pq @ v + qq @ v, np.zeros(n_u),
+                      jac=lambda v: Pq @ v + qq, method="SLSQP",
+                      constraints=[{"type": "ineq", "fun": lambda v: hq - Gq @ v,
+                                    "jac": lambda v: -Gq}],
+                      options={"ftol": 1e-11, "maxiter": 1000})
+    gate(oracle.success, f"planner oracle: {oracle.message}")
+    u = u_ref.cpu().double().numpy().reshape(-1)
+    obj = 0.5 * u @ Pq @ u + qq @ u
+    obj_rel = abs(obj - oracle.fun) / abs(oracle.fun)
+    viol = float((Gq @ u - hq).max())
+    gate(obj_rel < PLAN["obj_rtol"], f"plan_trajectory: objective {obj_rel:.3e} "
+         "relative from the oracle")
+    gate(viol < PLAN["viol"], f"plan_trajectory: bounds violated by {viol:.3e}")
+    x_dyn = float((x_ref[1:] - (x_ref[:-1] @ A.T + u_ref @ Bm.T)).abs().max())
+    print(f"[planner] plan_trajectory with bounds, H = {H} (n_u = {n_u}, "
+          f"{Gq.shape[0]} rows, float32) on the card: converged, objective "
+          f"{obj_rel:.3e} relative from the scipy oracle (gate "
+          f"{PLAN['obj_rtol']}), bounds violated by at most {max(viol, 0):.3e}, "
+          f"u {np.abs(u - oracle.x).max():.3e} from the oracle (not gated), "
+          f"dynamics residual {x_dyn:.1e}; launches {plan_launches}; wall "
+          f"{wall:.1f} ms on {card}")
+    return {name: {"qp_ipm": qp_launches[name], "planner": plan_launches[name]}
+            for name in LINALG}
 
 
 def main() -> int:
@@ -1391,7 +1716,12 @@ def main() -> int:
     phase_beyond_kernels(pt, torch, dev, streams, card)
 
     # 8. The entry points.
-    phase_entry_points(pt, torch, dev, card)
+    mc_plain = phase_entry_points(pt, torch, dev, card)
+
+    # 9. parallel/ (the mesh, the sample-parallel solve), the generic IPM
+    # and the planner.
+    phase_mesh(pt, torch, dev, card, mc_plain)
+    new_paths = phase_generic_qp(pt, torch, dev, card)
 
     source = f"{PKG}/ops/csrc/"
     kernels = [
@@ -1409,7 +1739,9 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source + src,
-         "replaces": replaces, "launches": launches[name], **record[name]}
+         "replaces": replaces, "launches": launches[name], **record[name],
+         **({"launches_new_paths": new_paths[name]} if name in new_paths
+            else {})}
         for name, src, replaces in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ from . import ops
 from . import simulation
 from . import models
 from . import evaluation
+from . import parallel
 from . import utils
 from . import convert
 from .models import MPCResult, filter_core_batched, filter_trajectory

@@ -7,6 +7,8 @@
     ... --mode timing_analysis --sample_sizes 10,50,100,500,1000,1500 \
         --timing_runs 50 [--save_dir results]
     ... [--profile_dir DIR]   (a torch.profiler trace of the run)
+    torchrun --nproc_per_node N -m <this module> --mode monte_carlo \
+        --mesh data=N[,samples=M] ...   (also timing_analysis)
 
 The modes of the JAX package's CLI:
 
@@ -24,6 +26,12 @@ The modes of the JAX package's CLI:
 
 The plots need matplotlib.  Where it is not installed the run prints one
 line naming the plots it skips and goes on; --animate there is an error.
+
+--mesh data=N[,samples=M] splits monte_carlo's runs and timing_analysis's
+batches over a (data, samples) mesh of N x M processes, one device each
+(`parallel/`): under torchrun with that many processes, or alone for
+data=1 (a process group of one, set up here).  Only rank 0 prints the
+summary and writes files.  Single mode ignores it.
 """
 
 from __future__ import annotations
@@ -39,6 +47,53 @@ from .config import DEFAULT_DEVICE
 
 def _dtype(args):
     return torch.float64 if args.dtype == "float64" else torch.float32
+
+
+def _parse_mesh_spec(spec: str) -> dict:
+    """Parse `data=N[,samples=M]` into axis sizes."""
+    axes = {"data": None, "samples": 1}
+    for part in spec.split(","):
+        name, _, value = part.partition("=")
+        name = name.strip()
+        if (name not in axes or not value.strip().isdigit()
+                or int(value) < 1):
+            raise SystemExit(
+                f"--mesh: bad axis spec '{part}' "
+                "(expected data=N[,samples=M], sizes >= 1)")
+        axes[name] = int(value)
+    if axes["data"] is None:
+        raise SystemExit("--mesh: a data=N axis is required")
+    return axes
+
+
+def build_mesh(args):
+    """The mesh that --mesh asks for (None without it), on --device.
+
+    Under torchrun the process group comes from its environment; alone,
+    the mesh sets up a group of one.  The mesh must use every process.
+    """
+    if not getattr(args, "mesh", None):
+        return None
+    import torch.distributed as dist
+
+    from .parallel import initialize_distributed, make_mesh
+
+    axes = _parse_mesh_spec(args.mesh)
+    initialize_distributed(device=args.device)
+    n_need = axes["data"] * axes["samples"]
+    n_have = dist.get_world_size() if dist.is_initialized() else 1
+    if n_need != n_have:
+        raise SystemExit(
+            f"--mesh {args.mesh}: needs {n_need} processes, {n_have} "
+            f"running (launch with torchrun --nproc_per_node {n_need} -m "
+            f"{__package__}.cli ...)")
+    return make_mesh(n_data=axes["data"], n_samples=axes["samples"],
+                     device=args.device)
+
+
+def _lead(mesh) -> bool:
+    """Whether this process prints and writes: rank 0, or no mesh."""
+    return mesh is None or mesh.rank == 0
 
 
 def _load_viz(skipped: str):
@@ -113,31 +168,44 @@ def run_single(args):
     return result
 
 
-def run_timing(args):
+def run_timing(args, mesh=None):
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as dct
 
     params = dct.config.get_parameters(args.preset)
     sizes = [int(n.strip()) for n in args.sample_sizes.split(",")]
-    print(f"\nRunning DR-CVaR computation time analysis on {args.device}...")
+    lead = _lead(mesh)
+    if lead:
+        if mesh is not None:
+            print(f"Splitting the timing sweep over mesh {mesh.shape}")
+        print(f"\nRunning DR-CVaR computation time analysis on "
+              f"{args.device}...")
     data = dct.evaluation.analyze_dr_cvar_computation_time(
         sample_sizes=sizes, n_runs=args.timing_runs, save_dir=args.save_dir,
-        params=params, dtype=_dtype(args), device=args.device)
-    print(f"Timing analysis complete. Results saved to {args.save_dir}")
+        params=params, dtype=_dtype(args), device=args.device, mesh=mesh)
+    if lead:
+        print(f"Timing analysis complete. Results saved to {args.save_dir}")
     return data
 
 
-def run_monte_carlo(args):
+def run_monte_carlo(args, mesh=None):
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch as dct
 
     params = dct.config.get_parameters(args.preset)
     scenario = dct.config.get_scenario_config(args.scenario, args.preset)
-    print(f"Monte Carlo: {args.mc_runs} runs of {args.scenario} on "
-          f"{args.device} ...")
+    lead = _lead(mesh)
+    if lead:
+        if mesh is not None:
+            print(f"Splitting the MC run axis over mesh {mesh.shape}")
+        print(f"Monte Carlo: {args.mc_runs} runs of {args.scenario} on "
+              f"{args.device} ...")
     timer = dct.utils.Timer().start()
     result = dct.evaluation.run_monte_carlo_simulation(
         scenario, params, n_runs=args.mc_runs, seed=args.seed,
-        dtype=_dtype(args), device=args.device)
-    print(f"Monte Carlo (run): {timer.stop(block=result):.6f} seconds")
+        dtype=_dtype(args), device=args.device, mesh=mesh)
+    seconds = timer.stop(block=result)
+    if not lead:
+        return result
+    print(f"Monte Carlo (run): {seconds:.6f} seconds")
     dct.evaluation.print_mc_summary(result)
 
     npz_path = os.path.join(args.save_dir, f"{args.scenario}_mc_data.npz")
@@ -189,6 +257,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the card unless cpu is asked for; with no "
                              "card the default fails, it does not move to "
                              "the CPU")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="split monte_carlo / timing_analysis over a "
+                             "mesh of processes, e.g. data=2 or "
+                             "data=2,samples=2, under torchrun with that "
+                             "many processes (data=1 runs alone; single "
+                             "mode ignores it)")
     parser.add_argument("--save_dir", type=str, default="results")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="capture a torch.profiler trace of the run "
@@ -205,15 +279,25 @@ def main(argv=None):
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.utils import (
         trace)
 
-    os.makedirs(args.save_dir, exist_ok=True)
-    with trace(args.profile_dir):
-        if args.mode == "single":
-            result = run_single(args)
-        elif args.mode == "timing_analysis":
-            result = run_timing(args)
-        else:
-            result = run_monte_carlo(args)
-    if args.profile_dir:
+    if args.mode == "single" and args.mesh:
+        print("--mesh is ignored in --mode single "
+              "(one scenario; use monte_carlo/timing_analysis)")
+    mesh = None if args.mode == "single" else build_mesh(args)
+    lead = _lead(mesh)
+    try:
+        if lead:
+            os.makedirs(args.save_dir, exist_ok=True)
+        with trace(args.profile_dir):
+            if args.mode == "single":
+                result = run_single(args)
+            elif args.mode == "timing_analysis":
+                result = run_timing(args, mesh)
+            else:
+                result = run_monte_carlo(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if args.profile_dir and lead:
         print(f"Profiler trace written to {args.profile_dir}")
     return result
 

@@ -6,10 +6,12 @@ in chunks of `chunk_size` scenarios, and each run is reduced to its
 minimum distance over time per metric (plus the unfiltered reference)
 and its QPs' converged flags.
 
-Results do not depend on `chunk_size` or `batched`: JAX splits one key
-per run up front; here one seed per run is drawn up front from `seed`,
-and each run's obstacle noise comes from its own `torch.Generator`
-seeded with it, so a run draws the same numbers in any chunk.
+Results do not depend on `chunk_size`, `batched` or a mesh: JAX splits
+one key per run up front; here one seed per run is drawn up front from
+`seed` (`run_seeds`, whose first n seeds are the same for any longer
+draw), and each run's obstacle noise comes from its own
+`torch.Generator` seeded with it, so a run draws the same numbers in any
+chunk and on any rank.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ class MonteCarloResult(NamedTuple):
 
 
 def run_seeds(seed: int, n_runs: int) -> list[int]:
-    """One generator seed per run, drawn up front from `seed`."""
+    """One generator seed per run, drawn up front from `seed` by a CPU
+    generator; `run_seeds(s, n)` is a prefix of `run_seeds(s, m)` for
+    m > n, so a mesh's padded draw starts with the runs of a plain one."""
     gen = torch.Generator().manual_seed(seed)
     return torch.randint(0, 2 ** 62, (n_runs,), generator=gen,
                          dtype=torch.int64).tolist()
@@ -87,17 +91,22 @@ def run_monte_carlo_simulation(scenario: Scenario, params: Parameters,
                                statics: PipelineStatics | None = None,
                                batched: bool = True,
                                chunk_size: int = 1024,
+                               mesh=None,
                                qp_iters: int = 60) -> MonteCarloResult:
     """Run the full MC experiment.
 
     With `batched=True` (default) the runs go through the pipeline in
     chunks of `chunk_size` scenarios (the bound on device memory);
-    `batched=False` runs them one at a time.  Either way the result is
-    the same for the same seed.
+    `batched=False` runs them one at a time.  With a `parallel.Mesh` as
+    `mesh` the runs are split over its data axis instead
+    (`parallel.sweep.run_batch_sharded`, on the mesh's device), padded
+    to a multiple of the data axis with further seeds, and stripped.
+    Every way gives the result for the same seeds, with the same
+    `qp_iters`.
     """
     if n_runs is None:
         n_runs = params.num_mc_runs
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     if statics is None:
         statics = make_statics(scenario, params, dtype, device)
     sim_time = (scenario.sim_time if scenario.sim_time is not None
@@ -105,24 +114,34 @@ def run_monte_carlo_simulation(scenario: Scenario, params: Parameters,
     n_steps = int(sim_time / params.dt)
     chunk = max(1, chunk_size if batched else 1)
 
-    seeds = run_seeds(seed, n_runs)
-    min_d, conv = [], []
-    for start in range(0, n_runs, chunk):
-        obstacles = run_obstacles(statics, seeds[start:start + chunk],
-                                  scenario, params, n_steps)
-        res = run_scenario_with_obstacles(
-            statics, obstacles, scenario.ego_start, scenario.ego_goal,
-            params.ego_velocity, qp_iters=qp_iters)
-        md, cv = reduce_runs(res)
-        min_d.append(md)
-        conv.append(cv)
-    min_d = torch.cat(min_d)
+    if mesh is not None:
+        from ..parallel.sweep import run_batch_sharded
+        n_data = mesh.shape["data"]
+        seeds = run_seeds(seed, -(-n_runs // n_data) * n_data)
+        dmin, ref_min, conv = run_batch_sharded(
+            mesh, statics, seeds, scenario, params, n_steps,
+            qp_iters=qp_iters)
+        min_d = torch.cat([dmin, ref_min[:, None]], dim=1)[:n_runs]
+        conv = conv[:n_runs]
+    else:
+        seeds = run_seeds(seed, n_runs)
+        min_d, conv = [], []
+        for start in range(0, n_runs, chunk):
+            obstacles = run_obstacles(statics, seeds[start:start + chunk],
+                                      scenario, params, n_steps)
+            res = run_scenario_with_obstacles(
+                statics, obstacles, scenario.ego_start, scenario.ego_goal,
+                params.ego_velocity, qp_iters=qp_iters)
+            md, cv = reduce_runs(res)
+            min_d.append(md)
+            conv.append(cv)
+        min_d, conv = torch.cat(min_d), torch.cat(conv)
     collisions = min_d < 0
     return MonteCarloResult(
         min_distances=min_d,
         collisions=collisions,
         collision_probs=collisions.to(torch.float32).mean(0),
-        qp_converged=torch.cat(conv),
+        qp_converged=conv,
     )
 
 

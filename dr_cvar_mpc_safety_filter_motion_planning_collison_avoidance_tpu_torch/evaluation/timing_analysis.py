@@ -13,14 +13,20 @@ result, divided by `n_runs`; the first call of each solver and size is
 excluded.  Same artifacts when `save_dir` is given:
 `timing_comparison.csv` (same columns), `timing_data.npz`,
 `timing_data.txt` and `dr_cvar_computation_time{,_with_outliers}.png`.
+The text and data files are written whether or not matplotlib is
+installed; without it the run prints one line naming the plots it skips.
 With `save_dir=None` nothing is written and nothing is imported for
 plots (matplotlib is imported by `plot_timing_results` alone), and the
-table is printed without pandas.
+table is printed without pandas.  With a `parallel.Mesh` the batch of
+each size is split over its data axis
+(`parallel.sweep.make_sharded_timing_solvers`) and only rank 0 prints
+and writes.
 """
 
 from __future__ import annotations
 
 import csv
+import importlib.util
 import os
 import time
 
@@ -33,6 +39,8 @@ from ..ops.halfspace import cvar_g_star, dr_cvar_g_star
 
 TIMING_KEYS = ("setup_times", "solve_times", "call_times",
                "cvar_setup_times", "cvar_solve_times", "cvar_call_times")
+PLOTS = ("dr_cvar_computation_time.png",
+         "dr_cvar_computation_time_with_outliers.png")
 TABLE_COLUMNS = ("Samples", "DR-CVaR Setup", "DR-CVaR Solve",
                  "DR-CVaR Call", "CVaR Setup", "CVaR Solve", "CVaR Call")
 
@@ -79,7 +87,8 @@ def analyze_dr_cvar_computation_time(sample_sizes=(10, 50, 100, 500, 1000,
                                      params: Parameters | None = None,
                                      repeats: int = 20, seed: int = 0,
                                      dtype=torch.float32, device=DEFAULT_DEVICE,
-                                     verbose=True, resume: bool = False):
+                                     verbose=True, resume: bool = False,
+                                     mesh=None):
     """Sweep sample sizes and time batched halfspace solves.
 
     Per size: `n_runs` Gaussian instances about [0.5, 0] with scale 0.1
@@ -87,15 +96,20 @@ def analyze_dr_cvar_computation_time(sample_sizes=(10, 50, 100, 500, 1000,
     `np.random.default_rng(seed)`; `repeats` timed repetitions of setup
     and solve per solver (see the module docstring).  With `resume=True`
     and a `save_dir`, sizes already in `save_dir/timing_data.npz` are
-    skipped and the checkpoint is extended.
+    skipped and the checkpoint is extended (with a mesh, every rank
+    reads it, so the ranks must see the same file).  With a
+    `parallel.Mesh` as `mesh` the sweep runs on the mesh's device, each
+    batch split over its data axis; the times are rank 0's.
 
     Returns {key: {n: [ms, ...]}} with the keys of TIMING_KEYS.
     """
     if params is None:
         params = Parameters()
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     pin_matmul_precision(device)
-    if save_dir:
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
+    if save_dir and lead:
         os.makedirs(save_dir, exist_ok=True)
     npz_path = os.path.join(save_dir, "timing_data.npz") if save_dir else None
 
@@ -112,7 +126,11 @@ def analyze_dr_cvar_computation_time(sample_sizes=(10, 50, 100, 500, 1000,
             print(f"Resuming: sizes {sorted(done_sizes)} loaded from "
                   f"{npz_path}")
 
-    dr_batch, cvar_batch = _make_batched_solvers(params)
+    if mesh is not None:
+        from ..parallel.sweep import make_sharded_timing_solvers
+        dr_batch, cvar_batch = make_sharded_timing_solvers(mesh, params)
+    else:
+        dr_batch, cvar_batch = _make_batched_solvers(params)
     h = torch.as_tensor(np.array([1.0, 1.0]) / np.sqrt(2.0), dtype=dtype,
                         device=device)
     rng = np.random.default_rng(seed)
@@ -145,39 +163,49 @@ def analyze_dr_cvar_computation_time(sample_sizes=(10, 50, 100, 500, 1000,
                 timing_data[prefix + "solve_times"][n_samples].append(solve_ms)
                 timing_data[prefix + "call_times"][n_samples].append(
                     setup_ms + solve_ms)
-        if npz_path:
+        if npz_path and lead:
             save_timing_data(timing_data, npz_path)  # checkpoint per size
 
-    if save_dir:
-        plot_timing_results(timing_data, list(sample_sizes), save_dir)
-    create_comparison_table(timing_data, list(sample_sizes), save_dir,
-                            verbose=verbose)
+    if save_dir and lead:
+        write_outlier_report(timing_data, list(sample_sizes), save_dir)
+        if importlib.util.find_spec("matplotlib") is None:
+            print(f"matplotlib is not installed: skipping {PLOTS[0]} and "
+                  f"{PLOTS[1]}")
+        else:
+            plot_timing_results(timing_data, list(sample_sizes), save_dir)
+    create_comparison_table(timing_data, list(sample_sizes),
+                            save_dir if lead else None, verbose=verbose)
     return timing_data
 
 
-def plot_timing_results(timing_data, sample_sizes, save_dir):
-    """3-panel boxplots, filtered and unfiltered, and `timing_data.txt`
-    (the per-size outlier-removal lines), as the JAX package writes
-    them."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+# Outlier thresholds of the filtered plots and of the report (ms).
+SETUP_THRESHOLD, SOLVE_THRESHOLD, CALL_THRESHOLD = 2, 100, 400
 
-    setup_threshold, solve_threshold, call_threshold = 2, 100, 400  # ms
 
+def write_outlier_report(timing_data, sample_sizes, save_dir):
+    """`timing_data.txt`: the per-size outlier-removal lines of the
+    filtered plots, as the JAX package writes them."""
     lines = []
     for n in sample_sizes:
         lines.append(f"Sample size {n}:")
         for key, thr, label in (
-                ("setup_times", setup_threshold, "Setup Time"),
-                ("solve_times", solve_threshold, "Solve Time"),
-                ("call_times", call_threshold, "Call Time")):
+                ("setup_times", SETUP_THRESHOLD, "Setup Time"),
+                ("solve_times", SOLVE_THRESHOLD, "Solve Time"),
+                ("call_times", CALL_THRESHOLD, "Call Time")):
             arr = np.asarray(timing_data[key][n])
             removed = int((arr >= thr).sum())
             lines.append(f"  {label}: Removed {removed}/{len(arr)} "
                          f"outliers > {thr}ms")
     with open(os.path.join(save_dir, "timing_data.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+def plot_timing_results(timing_data, sample_sizes, save_dir):
+    """3-panel boxplots, filtered and unfiltered, as the JAX package
+    draws them (`PLOTS`); needs matplotlib."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
 
     def panel(ax, key, threshold, title):
         data = []
@@ -189,18 +217,18 @@ def plot_timing_results(timing_data, sample_sizes, save_dir):
         ax.set_ylabel("Time (ms)")
 
     for suffix, thresholds in (
-        ("", (setup_threshold, solve_threshold, call_threshold)),
+        ("", (SETUP_THRESHOLD, SOLVE_THRESHOLD, CALL_THRESHOLD)),
         ("_with_outliers", (None, None, None)),
     ):
         fig, axs = plt.subplots(3, 1, figsize=(10, 12))
         label = ("(outliers > {}ms removed)" if suffix == "" else
                  "(with outliers)")
         panel(axs[0], "setup_times", thresholds[0],
-              f"Setup Time {label.format(setup_threshold)}")
+              f"Setup Time {label.format(SETUP_THRESHOLD)}")
         panel(axs[1], "solve_times", thresholds[1],
-              f"Solve Time {label.format(solve_threshold)}")
+              f"Solve Time {label.format(SOLVE_THRESHOLD)}")
         panel(axs[2], "call_times", thresholds[2],
-              f"Call Time {label.format(call_threshold)}")
+              f"Call Time {label.format(CALL_THRESHOLD)}")
         axs[2].set_xlabel("Number Samples")
         fig.tight_layout()
         fig.savefig(os.path.join(

@@ -44,6 +44,12 @@ _SIGNATURES = {
 }
 
 
+def hashed_files() -> list[Path]:
+    """The files of `csrc/` a build depends on (sources and headers); the
+    build directory's name is their hash."""
+    return sorted(CSRC.glob("*.cu*"))
+
+
 class KernelLibrary(NamedTuple):
     lib: ctypes.CDLL
     path: Path
@@ -75,7 +81,7 @@ def load(extra_flags: tuple = (), replace: tuple = ()) -> KernelLibrary:
     swap = {replace[0]: Path(replace[1])} if replace else {}
     sources = [swap.get(p.name, p) for p in sorted(CSRC.glob("*.cu"))]
     digest = hashlib.sha256(" ".join(flags).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in hashed_files():
         digest.update(path.name.encode())
         digest.update(swap.get(path.name, path).read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]

@@ -112,6 +112,10 @@ _DEVICE_DEFAULTS = [
     ("convert", "mpc_problem"),
     ("simulation.environment", "Environment"),
     ("models.mpc_filter", "filter_trajectory"),
+    ("parallel.mesh", "rank_device"),
+    ("parallel.mesh", "make_mesh"),
+    ("parallel.distributed", "initialize_distributed"),
+    ("parallel.distributed", "make_multihost_mesh"),
 ]
 
 

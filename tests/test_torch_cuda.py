@@ -604,3 +604,70 @@ def test_filter_trajectory_on_the_card(cuda):
                                rtol=0, atol=1e-4)
     torch.testing.assert_close(gpu.x_filtered.cpu().double(), cpu.x_filtered,
                                rtol=0, atol=1e-4)
+
+
+def test_solve_qp_batched_launches_the_linalg_kernels(cuda):
+    """The generic IPM's float32 systems (n <= 64) reach kernels 2 and 3,
+    and its answer agrees with the CPU float32 run to the solver's
+    floor."""
+    rng = np.random.default_rng(0)
+    B, n, m = 8, 20, 40
+    L = rng.normal(size=(B, n, n))
+    args = [L @ L.transpose(0, 2, 1) + np.eye(n), rng.normal(size=(B, n)),
+            rng.normal(size=(B, m, n)), rng.uniform(0.1, 2.0, size=(B, m))]
+    before = _kernel_counts()
+    sol = pt.ops.solve_qp_batched(*(torch.as_tensor(a, dtype=torch.float32,
+                                                    device=cuda)
+                                    for a in args))
+    torch.cuda.synchronize()
+    after = _kernel_counts()
+    assert after[0] == before[0]
+    assert after[1] > before[1] and after[2] > before[2]
+    ref = pt.ops.solve_qp_batched(*(torch.as_tensor(a) for a in args))
+    assert bool(sol.converged.all()) and bool(ref.converged.all())
+    torch.testing.assert_close(sol.obj.cpu().double(), ref.obj, rtol=1e-3,
+                               atol=0)
+
+
+def test_plan_trajectory_launches_the_linalg_kernels(cuda):
+    """plan_trajectory with bounds at H = 30 (n_u = 60) on the card."""
+    A, B, C = pt.core.dynamics.create_double_integrator_matrices(
+        0.2, dtype=torch.float32, device=cuda)
+    planner = pt.models.Planner(A, B, C, 2.0, 1.0, 30, 0.2)
+    lim = np.array([0.3, 0.3])
+    before = _kernel_counts()
+    x_ref, u_ref, info = pt.models.plan_trajectory(
+        planner, [-4.0, 0.0, 0.0, 0.0], [4.0, 0.0, 0.0, 0.0],
+        input_bounds=(-lim, lim),
+        state_bounds=(-np.array([10.0, 10.0, 5.0, 5.0]),
+                      np.array([10.0, 10.0, 5.0, 5.0])), has_bounds=True)
+    torch.cuda.synchronize()
+    after = _kernel_counts()
+    assert after[1] > before[1] and after[2] > before[2]
+    assert bool(info["converged"]) and x_ref.device.type == "cuda"
+    assert float(u_ref.abs().max()) <= 0.3 + 1e-5
+
+
+def test_mesh_data1_runs_on_nccl(cuda, tmp_path):
+    """--mesh data=1 in one process: a NCCL group of one, set up and torn
+    down by the CLI; the result equals the meshless run's."""
+    import torch.distributed as dist
+
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch import (
+        cli)
+
+    argv = ["--mode", "monte_carlo", "--mc_runs", "8", "--device", "cuda",
+            "--preset", "paper"]
+    plain = cli.main(argv + ["--save_dir", str(tmp_path / "plain")])
+    pt.parallel.CENSUS.clear()
+    mesh = cli.main(argv + ["--mesh", "data=1", "--save_dir",
+                            str(tmp_path / "mesh")])
+    assert sum(pt.parallel.CENSUS.values()) == 1
+    assert not dist.is_initialized()
+    assert torch.equal(mesh.min_distances, plain.min_distances)
+    probe = pt.parallel.make_mesh(1, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        assert probe.device == torch.device("cuda", 0)
+    finally:
+        probe.close()
