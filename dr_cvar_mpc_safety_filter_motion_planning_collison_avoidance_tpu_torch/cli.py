@@ -70,25 +70,37 @@ def build_mesh(args):
     """The mesh that --mesh asks for (None without it), on --device.
 
     Under torchrun the process group comes from its environment; alone,
-    the mesh sets up a group of one.  The mesh must use every process.
+    the mesh sets up a group of one.  Either way `make_mesh` sets it up
+    here, so the mesh owns it and `close_mesh` ends it.  The mesh must
+    use every process.
     """
     if not getattr(args, "mesh", None):
         return None
-    import torch.distributed as dist
-
-    from .parallel import initialize_distributed, make_mesh
+    from .parallel import make_mesh
 
     axes = _parse_mesh_spec(args.mesh)
-    initialize_distributed(device=args.device)
-    n_need = axes["data"] * axes["samples"]
-    n_have = dist.get_world_size() if dist.is_initialized() else 1
-    if n_need != n_have:
+    try:
+        return make_mesh(n_data=axes["data"], n_samples=axes["samples"],
+                         device=args.device)
+    except ValueError as exc:
         raise SystemExit(
-            f"--mesh {args.mesh}: needs {n_need} processes, {n_have} "
-            f"running (launch with torchrun --nproc_per_node {n_need} -m "
-            f"{__package__}.cli ...)")
-    return make_mesh(n_data=axes["data"], n_samples=axes["samples"],
-                     device=args.device)
+            f"--mesh {args.mesh}: {exc} (launch with torchrun "
+            f"--nproc_per_node {axes['data'] * axes['samples']} -m "
+            f"{__package__}.cli ...)") from exc
+
+
+def close_mesh(mesh, finished: bool) -> None:
+    """End the CLI's process group.  After a finished run every rank
+    first waits at a barrier, so that none leaves while another still
+    works (rank 0 writes and plots after the last collective); a rank
+    that exits with its Gloo group alive can abort in the group's
+    destructor.  After a failure the rank does not wait: torchrun stops
+    the others."""
+    import torch.distributed as dist
+
+    if finished and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+    mesh.close()
 
 
 def _lead(mesh) -> bool:
@@ -96,7 +108,7 @@ def _lead(mesh) -> bool:
     return mesh is None or mesh.rank == 0
 
 
-def _load_viz(skipped: str):
+def load_viz(skipped: str):
     """simulation/visualization.py, or None (after one line naming the
     plots that are skipped) where matplotlib is not installed."""
     try:
@@ -138,7 +150,7 @@ def run_single(args):
     metric = args.metric
     results_png = f"{args.scenario}_results.png"
     halfspaces_png = f"{args.scenario}_{metric}_halfspaces.png"
-    viz = _load_viz(f"{results_png} and {halfspaces_png}")
+    viz = load_viz(f"{results_png} and {halfspaces_png}")
     if viz is None:
         return result
     viz.plot_distance_to_collision(
@@ -212,7 +224,7 @@ def run_monte_carlo(args, mesh=None):
     dct.evaluation.save_mc_result(result, npz_path)
     print(f"Saved MC arrays to {npz_path}")
     comparison_png = f"{args.scenario}_mc_comparison.png"
-    viz = _load_viz(comparison_png)
+    viz = load_viz(comparison_png)
     if viz is not None:
         names = list(dct.models.METRICS) + ["reference"]
         viz.compare_risk_metrics(
@@ -284,6 +296,7 @@ def main(argv=None):
               "(one scenario; use monte_carlo/timing_analysis)")
     mesh = None if args.mode == "single" else build_mesh(args)
     lead = _lead(mesh)
+    finished = False
     try:
         if lead:
             os.makedirs(args.save_dir, exist_ok=True)
@@ -294,9 +307,10 @@ def main(argv=None):
                 result = run_timing(args, mesh)
             else:
                 result = run_monte_carlo(args, mesh)
+        finished = True
     finally:
         if mesh is not None:
-            mesh.close()
+            close_mesh(mesh, finished)
     if args.profile_dir and lead:
         print(f"Profiler trace written to {args.profile_dir}")
     return result

@@ -2,6 +2,7 @@ from . import halfspace
 from . import cuda_kernels
 from . import cuda_linalg
 from . import cuda_variants
+from . import native_qp
 from . import qp_ipm
 from . import qp_ipm_structured
 from .halfspace import (Halfspace, mean_halfspace, cvar_halfspace,

@@ -33,6 +33,7 @@ iteration.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -61,6 +62,11 @@ def use_linalg_kernels(dtype, n: int, k: int = 1) -> bool:
     N_MAX, k <= MAX_RHS).  The choice never looks at the device or at
     whether a launch succeeded."""
     return dtype == torch.float32 and n <= N_MAX and k <= MAX_RHS
+
+
+LINSOLVES = ("chol", "inv")
+IPM_PRECISIONS = ("highest", "high", "default")
+POLISH_REFINEMENTS = 2   # KKT refinement passes of the polish
 
 
 def _factor(S):
@@ -151,6 +157,33 @@ class _DenseOps:
         return (self.G.transpose(-1, -2) * d[:, None, :]) @ self.G
 
 
+@contextlib.contextmanager
+def _loop_precision(ipm_precision: str, dtype, device):
+    """The float32 matmul precision of the IPM loop.  On a CUDA tensor
+    "high" and "default" allow TF32, as XLA:GPU does for both; the
+    process-wide state is restored on the way out, raised or not.  On
+    the CPU nothing global is touched: XLA:CPU computes full float32
+    whatever the setting, so the three settings are bit-equal there."""
+    if (ipm_precision == "highest" or dtype != torch.float32
+            or torch.device(device).type != "cuda"):
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[1])
+        matmul.allow_tf32 = saved[0]
+
+
+def _select_rows(score, k: int):
+    """Indices of the k highest scores of each row (the polish's active
+    rows)."""
+    return torch.topk(score, k, dim=1).indices
+
+
 def _where(cond, new, old):
     """Lane select: cond [B] picks `new` over `old` for each lane."""
     return torch.where(cond.view((-1,) + (1,) * (new.dim() - 1)), new, old)
@@ -158,7 +191,8 @@ def _where(cond, new, old):
 
 def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                  max_iters: int = 60, tol: float | None = None,
-                 warm=None, box_theta=None) -> MPCQPSolution:
+                 warm=None, box_theta=None, linsolve: str = "chol",
+                 ipm_precision: str = "highest") -> MPCQPSolution:
     """Solve a batch of the slack-structured QPs above.
 
     Shapes: q_u [B, n], h1 [B, m1], A [B, m2, n], b [B, m2];
@@ -178,10 +212,31 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     tracking and the polish are the same, so a bad start costs
     iterations, never accuracy.
 
+    `linsolve` picks how each pass solves its two Newton systems:
+      * "chol": factor S once, two single right-hand-side solves
+        (predictor, corrector);
+      * "inv": factor S once, S^-1 = one solve with the n columns of the
+        identity as right-hand sides, and both Newton steps become
+        batched matvecs S^-1 rhs.  The polish keeps its Cholesky solves.
+    Both go through `_factor` / `_solve`, so "inv" on float32 with n <=
+    64 runs kernel 3 with k = n.  Any other value raises ValueError (the
+    JAX solver reads every other string as "chol").
+
+    `ipm_precision` ("highest", "high" or "default"): the float32 matmul
+    precision of the iteration loop only (see `_loop_precision`); the
+    polish and the reported residuals always run at full float32.  Any
+    other value raises ValueError.
+
     The IPM's answer goes through the active-set Newton polish
     (`_polish`), which takes a float32 iterate from the IPM's merit floor
     (~1e-4 relative) to linear-solve accuracy (~1e-6).
     """
+    if linsolve not in LINSOLVES:
+        raise ValueError(f"linsolve must be one of {LINSOLVES}, got "
+                         f"{linsolve!r}")
+    if ipm_precision not in IPM_PRECISIONS:
+        raise ValueError(f"ipm_precision must be one of {IPM_PRECISIONS}, "
+                         f"got {ipm_precision!r}")
     dtype, device = q_u.dtype, q_u.device
     reg = 1e-10 if dtype == torch.float64 else 1e-7
     if tol is None:
@@ -242,93 +297,99 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     done = torch.zeros(Bsz, dtype=torch.bool, device=device)
     stall = torch.zeros(Bsz, dtype=torch.int32, device=device)
     iters = torch.zeros(Bsz, dtype=torch.int32, device=device)
+    # "inv" solves S against a materialised identity: kernel 3 takes only
+    # contiguous right-hand sides.  Made once a call, not once a pass.
+    eye_b = eye.expand(Bsz, n, n).contiguous() if linsolve == "inv" else None
 
     active = ~done & (iters < max_iters)
-    while bool(active.any()):
-        u, s, w1, w2, w3, l1, l2, l3 = x
-        merit, mu = merit_of(u, s, l1, l2, l3, w1, w2, w3)
-        better = merit < best_merit
-        # Stagnation / breakdown: count iterations without a 0.5%
-        # best-merit improvement; a non-finite merit means the iterate
-        # broke down and the tracked best iterate is the answer.
-        improved = merit < best_merit * 0.995
-        stall_n = torch.where(improved, torch.zeros_like(stall), stall + 1)
-        broke = ~torch.isfinite(merit)
-        best_merit_n = torch.where(better, merit, best_merit)
-        best_n = [_where(better, new, old) for new, old in zip(x, best)]
+    with _loop_precision(ipm_precision, dtype, device):
+        while bool(active.any()):
+            u, s, w1, w2, w3, l1, l2, l3 = x
+            merit, mu = merit_of(u, s, l1, l2, l3, w1, w2, w3)
+            better = merit < best_merit
+            # Stagnation / breakdown: count iterations without a 0.5%
+            # best-merit improvement; a non-finite merit means the iterate
+            # broke down and the tracked best iterate is the answer.
+            improved = merit < best_merit * 0.995
+            stall_n = torch.where(improved, torch.zeros_like(stall), stall + 1)
+            broke = ~torch.isfinite(merit)
+            best_merit_n = torch.where(better, merit, best_merit)
+            best_n = [_where(better, new, old) for new, old in zip(x, best)]
 
-        r_du = _mv(P_uu, u) + q_u + gu.rmv(l1) + _rmv(A, l2)
-        r_ds = p_ss * s + q_s - l2 - l3
-        r_p1 = gu.mv(u) + w1 - h1
-        r_p2 = _mv(A, u) - s + w2 - b
-        r_p3 = -s + w3
+            r_du = _mv(P_uu, u) + q_u + gu.rmv(l1) + _rmv(A, l2)
+            r_ds = p_ss * s + q_s - l2 - l3
+            r_p1 = gu.mv(u) + w1 - h1
+            r_p2 = _mv(A, u) - s + w2 - b
+            r_p3 = -s + w3
 
-        d1 = torch.clamp(l1 / w1, 1e-10, 1e10)
-        d2 = torch.clamp(l2 / w2, 1e-10, 1e10)
-        d3 = torch.clamp(l3 / w3, 1e-10, 1e10)
-        m_ss = p_ss + d2 + d3
-        d2_eff = d2 - d2 * d2 / m_ss
-        S = (P_uu + gu.quad(d1)
-             + (A.transpose(-1, -2) * d2_eff[:, None, :]) @ A + reg * eye)
-        Lchol = _factor(S)
+            d1 = torch.clamp(l1 / w1, 1e-10, 1e10)
+            d2 = torch.clamp(l2 / w2, 1e-10, 1e10)
+            d3 = torch.clamp(l3 / w3, 1e-10, 1e10)
+            m_ss = p_ss + d2 + d3
+            d2_eff = d2 - d2 * d2 / m_ss
+            S = (P_uu + gu.quad(d1)
+                 + (A.transpose(-1, -2) * d2_eff[:, None, :]) @ A + reg * eye)
+            Lchol = _factor(S)
+            S_inv = None if eye_b is None else _solve(Lchol, eye_b)
 
-        def newton(rc1, rc2, rc3):
-            t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
-            rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
-                   - _rmv(A, d2 * r_p2 - rc2 / w2)
-                   + _rmv(A, d2 * t_s / m_ss))
-            du = _solve(Lchol, rhs)
-            Adu = _mv(A, du)
-            ds = (t_s + d2 * Adu) / m_ss
-            dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
-            dl2 = d2 * (Adu - ds + r_p2) - rc2 / w2
-            dl3 = d3 * (-ds + r_p3) - rc3 / w3
-            dw1 = -(rc1 + w1 * dl1) / l1
-            dw2 = -(rc2 + w2 * dl2) / l2
-            dw3 = -(rc3 + w3 * dl3) / l3
-            return du, ds, dl1, dl2, dl3, dw1, dw2, dw3
+            def newton(rc1, rc2, rc3):
+                t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
+                rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
+                       - _rmv(A, d2 * r_p2 - rc2 / w2)
+                       + _rmv(A, d2 * t_s / m_ss))
+                du = (_mv(S_inv, rhs) if S_inv is not None
+                      else _solve(Lchol, rhs))
+                Adu = _mv(A, du)
+                ds = (t_s + d2 * Adu) / m_ss
+                dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
+                dl2 = d2 * (Adu - ds + r_p2) - rc2 / w2
+                dl3 = d3 * (-ds + r_p3) - rc3 / w3
+                dw1 = -(rc1 + w1 * dl1) / l1
+                dw2 = -(rc2 + w2 * dl2) / l2
+                dw3 = -(rc3 + w3 * dl3) / l3
+                return du, ds, dl1, dl2, dl3, dw1, dw2, dw3
 
-        def steps(dl1, dl2, dl3, dw1, dw2, dw3, frac):
-            a_p = torch.minimum(torch.minimum(_pos_step(w1, dw1, frac),
-                                              _pos_step(w2, dw2, frac)),
-                                _pos_step(w3, dw3, frac))
-            a_d = torch.minimum(torch.minimum(_pos_step(l1, dl1, frac),
-                                              _pos_step(l2, dl2, frac)),
-                                _pos_step(l3, dl3, frac))
-            return a_p[:, None], a_d[:, None]
+            def steps(dl1, dl2, dl3, dw1, dw2, dw3, frac):
+                a_p = torch.minimum(torch.minimum(_pos_step(w1, dw1, frac),
+                                                  _pos_step(w2, dw2, frac)),
+                                    _pos_step(w3, dw3, frac))
+                a_d = torch.minimum(torch.minimum(_pos_step(l1, dl1, frac),
+                                                  _pos_step(l2, dl2, frac)),
+                                    _pos_step(l3, dl3, frac))
+                return a_p[:, None], a_d[:, None]
 
-        # Predictor.
-        _, _, dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a = newton(
-            l1 * w1, l2 * w2, l3 * w3)
-        a_p, a_d = steps(dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a, 1.0)
-        mu_aff = (_dot(l1 + a_d * dl1_a, w1 + a_p * dw1_a)
-                  + _dot(l2 + a_d * dl2_a, w2 + a_p * dw2_a)
-                  + _dot(l3 + a_d * dl3_a, w3 + a_p * dw3_a)) / m_total
-        sm = ((mu_aff / torch.clamp(mu, min=1e-30)) ** 3 * mu)[:, None]
+            # Predictor.
+            _, _, dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a = newton(
+                l1 * w1, l2 * w2, l3 * w3)
+            a_p, a_d = steps(dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a, 1.0)
+            mu_aff = (_dot(l1 + a_d * dl1_a, w1 + a_p * dw1_a)
+                      + _dot(l2 + a_d * dl2_a, w2 + a_p * dw2_a)
+                      + _dot(l3 + a_d * dl3_a, w3 + a_p * dw3_a)) / m_total
+            sm = ((mu_aff / torch.clamp(mu, min=1e-30)) ** 3 * mu)[:, None]
 
-        # Corrector.
-        du, ds, dl1, dl2, dl3, dw1, dw2, dw3 = newton(
-            l1 * w1 + dl1_a * dw1_a - sm,
-            l2 * w2 + dl2_a * dw2_a - sm,
-            l3 * w3 + dl3_a * dw3_a - sm)
-        a_p, a_d = steps(dl1, dl2, dl3, dw1, dw2, dw3, 0.99)
+            # Corrector.
+            du, ds, dl1, dl2, dl3, dw1, dw2, dw3 = newton(
+                l1 * w1 + dl1_a * dw1_a - sm,
+                l2 * w2 + dl2_a * dw2_a - sm,
+                l3 * w3 + dl3_a * dw3_a - sm)
+            a_p, a_d = steps(dl1, dl2, dl3, dw1, dw2, dw3, 0.99)
 
-        conv = best_merit_n < tol
-        done_n = done | conv | broke | (stall_n >= 10)
-        stepped = [u + a_p * du, s + a_p * ds,
-                   w1 + a_p * dw1, w2 + a_p * dw2, w3 + a_p * dw3,
-                   l1 + a_d * dl1, l2 + a_d * dl2, l3 + a_d * dl3]
-        x_n = [_where(done_n, old, new) for new, old in zip(stepped, x)]
-        iters_n = torch.where(done_n, iters, iters + 1)
+            conv = best_merit_n < tol
+            done_n = done | conv | broke | (stall_n >= 10)
+            stepped = [u + a_p * du, s + a_p * ds,
+                       w1 + a_p * dw1, w2 + a_p * dw2, w3 + a_p * dw3,
+                       l1 + a_d * dl1, l2 + a_d * dl2, l3 + a_d * dl3]
+            x_n = [_where(done_n, old, new) for new, old in zip(stepped, x)]
+            iters_n = torch.where(done_n, iters, iters + 1)
 
-        # A lane that had stopped before this pass keeps its whole state.
-        x = [_where(active, new, old) for new, old in zip(x_n, x)]
-        best = [_where(active, new, old) for new, old in zip(best_n, best)]
-        best_merit = torch.where(active, best_merit_n, best_merit)
-        done = torch.where(active, done_n, done)
-        stall = torch.where(active, stall_n, stall)
-        iters = torch.where(active, iters_n, iters)
-        active = ~done & (iters < max_iters)
+            # A lane that had stopped before this pass keeps its whole state.
+            x = [_where(active, new, old) for new, old in zip(x_n, x)]
+            best = [_where(active, new, old) for new, old in zip(best_n, best)]
+            best_merit = torch.where(active, best_merit_n, best_merit)
+            done = torch.where(active, done_n, done)
+            stall = torch.where(active, stall_n, stall)
+            iters = torch.where(active, iters_n, iters)
+            active = ~done & (iters < max_iters)
 
     merit, _ = merit_of(x[0], x[1], x[5], x[6], x[7], x[2], x[3], x[4])
     better = merit < best_merit
@@ -360,8 +421,8 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     over the <= n + 4 highest-multiplier active rows of [G_u; A],
     selected with `topk` + `gather`.  Tied zero scores pick inactive
     rows, which get va = 0 and decouple, so the tie order does not
-    matter.  Two KKT refinement passes follow.  The caller keeps the
-    polished iterate only where its merit is lower.
+    matter.  `POLISH_REFINEMENTS` (2) KKT refinement passes follow.
+    The caller keeps the polished iterate only where its merit is lower.
     """
     dtype, device = q_u.dtype, q_u.device
     Bsz, n = q_u.shape
@@ -400,7 +461,7 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     k_sel = min(n + 4, E.shape[1])
 
     score = torch.where(act, 1.0 + l_all, zeros(l_all))
-    idx = torch.topk(score, k_sel, dim=1).indices          # [B, k_sel]
+    idx = _select_rows(score, k_sel)                       # [B, k_sel]
     va = torch.gather(act.to(dtype), 1, idx)
     Eg = torch.gather(E, 1, idx[:, :, None].expand(Bsz, k_sel, n))
     eg = torch.gather(e, 1, idx)
@@ -421,7 +482,7 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     #     K u + q_t + E_a' nu_a = 0,   E_a u = e_a.
     Eg_h, eg_h, va_h = (t.to(acc) for t in (Eg, eg, va))
     u_h, nu_h = u_p.to(acc), nug.to(acc)
-    for _ in range(2):
+    for _ in range(POLISH_REFINEMENTS):
         r1 = (_mv(K_h, u_h) + q_h + _rmv(Eg_h, nu_h)).to(dtype)
         r2 = (va_h * (_mv(Eg_h, u_h) - eg_h)).to(dtype)
         t = _solve(LK, r1)

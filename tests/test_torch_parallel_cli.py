@@ -7,6 +7,7 @@
   * `torchrun --nproc_per_node 2 ... --mesh data=2 --device cpu`: the npz
     equal to the plain run's, written by rank 0 alone, and the timing
     sweep's CSV and text file;
+  * under a launcher's variables the CLI ends the group it set up;
   * single mode prints the "ignored" line;
   * `--mode timing_analysis --save_dir` where matplotlib is not
     installed writes the CSV, npz and `timing_data.txt` and names the
@@ -72,6 +73,27 @@ def test_mesh_data1_in_process(tmp_path, capsys):
                         str(tmp_path / "timing")])
     assert not dist.is_initialized()
     assert TIMING_FILES <= set(os.listdir(tmp_path / "timing"))
+
+
+def test_mesh_under_a_launcher_is_closed_by_the_cli(tmp_path, monkeypatch):
+    """With a launcher's variables set (a world of one; port 0 lets the
+    store pick a free one), the CLI sets the group up through
+    `initialize_distributed`: it owns that group and ends it.  A torchrun
+    rank that exits with its Gloo group alive can abort in the group's
+    destructor (SIGABRT, "terminate called without an active
+    exception") while rank 0 still writes."""
+    for name, value in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "0"),
+                        ("RANK", "0"), ("WORLD_SIZE", "1"),
+                        ("LOCAL_RANK", "0"), ("LOCAL_WORLD_SIZE", "1")):
+        monkeypatch.setenv(name, value)
+    plain = tcli.main(MC + ["--save_dir", str(tmp_path / "plain")])
+    mesh = tcli.main(MC + ["--mesh", "data=1",
+                           "--save_dir", str(tmp_path / "mesh")])
+    assert not dist.is_initialized()
+    assert torch.equal(mesh.min_distances, plain.min_distances)
+    with pytest.raises(SystemExit, match="needs 2 processes, 1 running"):
+        tcli.main(MC + ["--mesh", "data=2", "--save_dir", str(tmp_path)])
+    assert not dist.is_initialized()
 
 
 def test_single_mode_ignores_the_mesh(tmp_path, capsys):
