@@ -6,7 +6,8 @@
     ... --mode monte_carlo --mc_runs 300 [--save_dir results]
     ... --mode timing_analysis --sample_sizes 10,50,100,500,1000,1500 \
         --timing_runs 50 [--save_dir results]
-    ... [--profile_dir DIR]   (a torch.profiler trace of the run)
+    ... [--profile_dir DIR]   (a torch.profiler trace of the run, with the
+                              port's spans and counters in DIR/spans.json)
     torchrun --nproc_per_node N -m <this module> --mode monte_carlo \
         --mesh data=N[,samples=M] ...   (also timing_analysis)
 
@@ -278,7 +279,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_dir", type=str, default="results")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="capture a torch.profiler trace of the run "
-                             "into this directory (Chrome trace format)")
+                             "into this directory (trace.json, Chrome trace "
+                             "format) and the port's own spans and counters "
+                             "over it (spans.json)")
     return parser
 
 

@@ -31,6 +31,7 @@ import torch
 from ..config.parameters import DEFAULT_DEVICE
 from ..core.dynamics import condensed_dynamics, simulate_linear_system
 from ..ops.qp_ipm_structured import MPCQPSolution, solve_mpc_qp
+from ..utils.timing import annotate
 
 SLACK_LIN = 50.0   # linear slack penalty
 SLACK_QUAD = 50.0  # quadratic slack penalty
@@ -132,33 +133,36 @@ def _filter_core(prob: MPCProblem, x0, x_ref, hs_h, hs_g,
     Bsz = x0.shape[0]
     Phi, Gamma, Theta, C = prob.Phi, prob.Gamma, prob.Theta, prob.C
 
-    phi_x0 = x0.to(dtype) @ Phi.T                             # [B, H*n]
-    e0 = phi_x0 - x_ref[:, 1:H + 1].reshape(Bsz, -1).to(dtype)
-    q_u = 2.0 * prob.q_weight * (e0 @ Gamma)
-    pos0 = phi_x0.reshape(Bsz, H, n) @ C.T                    # [B, H, p]
+    with annotate("filter.assemble"):
+        phi_x0 = x0.to(dtype) @ Phi.T                             # [B, H*n]
+        e0 = phi_x0 - x_ref[:, 1:H + 1].reshape(Bsz, -1).to(dtype)
+        q_u = 2.0 * prob.q_weight * (e0 @ Gamma)
+        pos0 = phi_x0.reshape(Bsz, H, n) @ C.T                    # [B, H, p]
 
-    # Halfspace rows: h_{t,j} . (Theta_t u + pos0_t) + g <= s_{t,j}
-    hs_h = hs_h.to(dtype)
-    HS_u = torch.einsum("btjd,tdn->btjn", hs_h, Theta).reshape(Bsz, n_s, n_u)
-    hs_rhs = (-hs_g.to(dtype) - torch.einsum("btjd,btd->btj", hs_h, pos0)
-              ).reshape(Bsz, n_s)
+        # Halfspace rows: h_{t,j} . (Theta_t u + pos0_t) + g <= s_{t,j}
+        hs_h = hs_h.to(dtype)
+        HS_u = torch.einsum("btjd,tdn->btjn", hs_h, Theta).reshape(
+            Bsz, n_s, n_u)
+        hs_rhs = (-hs_g.to(dtype) - torch.einsum("btjd,btd->btj", hs_h, pos0)
+                  ).reshape(Bsz, n_s)
 
-    eye_u = torch.eye(n_u, dtype=dtype, device=x0.device)
-    Theta_flat = Theta.reshape(-1, n_u)
-    pos0_flat = pos0.reshape(Bsz, -1)
-    tile = lambda v: v.to(dtype).repeat(H).expand(Bsz, -1)   # noqa: E731
-    G_blocks = [torch.zeros((0, n_u), dtype=dtype, device=x0.device)]
-    h_blocks = [torch.zeros((Bsz, 0), dtype=dtype, device=x0.device)]
-    if has_u_bounds:
-        G_blocks += [eye_u, -eye_u]
-        h_blocks += [tile(u_max), -tile(u_min)]
-    if has_p_bounds:
-        G_blocks += [Theta_flat, -Theta_flat]
-        h_blocks += [tile(p_max) - pos0_flat, pos0_flat - tile(p_min)]
-    G_u = torch.cat(G_blocks, dim=0)
-    h1 = torch.cat(h_blocks, dim=1)
+        eye_u = torch.eye(n_u, dtype=dtype, device=x0.device)
+        Theta_flat = Theta.reshape(-1, n_u)
+        pos0_flat = pos0.reshape(Bsz, -1)
+        tile = lambda v: v.to(dtype).repeat(H).expand(Bsz, -1)   # noqa: E731
+        G_blocks = [torch.zeros((0, n_u), dtype=dtype, device=x0.device)]
+        h_blocks = [torch.zeros((Bsz, 0), dtype=dtype, device=x0.device)]
+        if has_u_bounds:
+            G_blocks += [eye_u, -eye_u]
+            h_blocks += [tile(u_max), -tile(u_min)]
+        if has_p_bounds:
+            G_blocks += [Theta_flat, -Theta_flat]
+            h_blocks += [tile(p_max) - pos0_flat, pos0_flat - tile(p_min)]
+        G_u = torch.cat(G_blocks, dim=0)
+        h1 = torch.cat(h_blocks, dim=1)
 
-    box_theta = Theta_flat if (has_u_bounds and has_p_bounds) else None
+        box_theta = Theta_flat if (has_u_bounds and has_p_bounds) else None
+
     sol = solve_mpc_qp(prob.P[:n_u, :n_u], q_u, G_u, h1, HS_u, hs_rhs,
                        2.0 * SLACK_QUAD, SLACK_LIN, max_iters=max_iters,
                        tol=tol, warm=warm, box_theta=box_theta)

@@ -29,6 +29,16 @@ lane's state is frozen once it stops, exactly as `vmap` of the JAX
 those of a solve on its own.  The loop runs until every lane has
 stopped; its exit test reads one boolean back to the host per
 iteration.
+
+With the port's recorder on (`utils/timing.py`), each pass and its parts
+are spans (`ipm.pass`; `ipm.residuals`, `ipm.factor`, `ipm.newton` twice,
+`ipm.step`; the readback `ipm.sync`; after the loop `ipm.polish`,
+`ipm.finalize`) and the solve counts `ipm.lanes`, `ipm.passes`,
+`ipm.lane_passes` (the sum over passes of the lanes still active: the
+readback then reads that number in place of the boolean) and
+`ipm.polish_kept` (lanes whose polished iterate is kept, one more
+readback a solve).  Off, the spans and counters do nothing and the loop
+reads back its boolean.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import timing
+from ..utils.timing import annotate
 from .cuda_linalg import (MAX_RHS, N_MAX, batched_cho_solve,
                           batched_cho_solve_plain, batched_cholesky,
                           batched_cholesky_plain)
@@ -189,6 +201,20 @@ def _where(cond, new, old):
     return torch.where(cond.view((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
+def _still_active(active) -> bool:
+    """The loop's exit test, its one readback a pass.  With the recorder
+    on, the number of active lanes is read back in its place (one sync
+    either way) and counted."""
+    if not timing.RECORDING:
+        return bool(active.any())
+    with annotate("ipm.sync"):
+        n = int(active.sum())
+    if n:
+        timing.count("ipm.passes")
+        timing.count("ipm.lane_passes", n)
+    return n > 0
+
+
 def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                  max_iters: int = 60, tol: float | None = None,
                  warm=None, box_theta=None, linsolve: str = "chol",
@@ -243,6 +269,7 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
         tol = 1e-9 if dtype == torch.float64 else 3e-5
     Bsz, n = q_u.shape
     m1, m2 = h1.shape[-1], b.shape[-1]
+    timing.count("ipm.lanes", Bsz)
     if box_theta is not None:
         hp = box_theta.shape[0]
         if m1 != 2 * n + 2 * hp:
@@ -301,9 +328,10 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     # contiguous right-hand sides.  Made once a call, not once a pass.
     eye_b = eye.expand(Bsz, n, n).contiguous() if linsolve == "inv" else None
 
-    active = ~done & (iters < max_iters)
-    with _loop_precision(ipm_precision, dtype, device):
-        while bool(active.any()):
+    def one_pass(x, best, best_merit, done, stall, iters, active):
+        """One pass of the loop over every lane: the new (x, best,
+        best_merit, done, stall, iters, active)."""
+        with annotate("ipm.residuals"):
             u, s, w1, w2, w3, l1, l2, l3 = x
             merit, mu = merit_of(u, s, l1, l2, l3, w1, w2, w3)
             better = merit < best_merit
@@ -329,35 +357,37 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
             d2_eff = d2 - d2 * d2 / m_ss
             S = (P_uu + gu.quad(d1)
                  + (A.transpose(-1, -2) * d2_eff[:, None, :]) @ A + reg * eye)
+        with annotate("ipm.factor"):
             Lchol = _factor(S)
             S_inv = None if eye_b is None else _solve(Lchol, eye_b)
 
-            def newton(rc1, rc2, rc3):
-                t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
-                rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
-                       - _rmv(A, d2 * r_p2 - rc2 / w2)
-                       + _rmv(A, d2 * t_s / m_ss))
-                du = (_mv(S_inv, rhs) if S_inv is not None
-                      else _solve(Lchol, rhs))
-                Adu = _mv(A, du)
-                ds = (t_s + d2 * Adu) / m_ss
-                dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
-                dl2 = d2 * (Adu - ds + r_p2) - rc2 / w2
-                dl3 = d3 * (-ds + r_p3) - rc3 / w3
-                dw1 = -(rc1 + w1 * dl1) / l1
-                dw2 = -(rc2 + w2 * dl2) / l2
-                dw3 = -(rc3 + w3 * dl3) / l3
-                return du, ds, dl1, dl2, dl3, dw1, dw2, dw3
+        def newton(rc1, rc2, rc3):
+            t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
+            rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
+                   - _rmv(A, d2 * r_p2 - rc2 / w2)
+                   + _rmv(A, d2 * t_s / m_ss))
+            du = (_mv(S_inv, rhs) if S_inv is not None
+                  else _solve(Lchol, rhs))
+            Adu = _mv(A, du)
+            ds = (t_s + d2 * Adu) / m_ss
+            dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
+            dl2 = d2 * (Adu - ds + r_p2) - rc2 / w2
+            dl3 = d3 * (-ds + r_p3) - rc3 / w3
+            dw1 = -(rc1 + w1 * dl1) / l1
+            dw2 = -(rc2 + w2 * dl2) / l2
+            dw3 = -(rc3 + w3 * dl3) / l3
+            return du, ds, dl1, dl2, dl3, dw1, dw2, dw3
 
-            def steps(dl1, dl2, dl3, dw1, dw2, dw3, frac):
-                a_p = torch.minimum(torch.minimum(_pos_step(w1, dw1, frac),
-                                                  _pos_step(w2, dw2, frac)),
-                                    _pos_step(w3, dw3, frac))
-                a_d = torch.minimum(torch.minimum(_pos_step(l1, dl1, frac),
-                                                  _pos_step(l2, dl2, frac)),
-                                    _pos_step(l3, dl3, frac))
-                return a_p[:, None], a_d[:, None]
+        def steps(dl1, dl2, dl3, dw1, dw2, dw3, frac):
+            a_p = torch.minimum(torch.minimum(_pos_step(w1, dw1, frac),
+                                              _pos_step(w2, dw2, frac)),
+                                _pos_step(w3, dw3, frac))
+            a_d = torch.minimum(torch.minimum(_pos_step(l1, dl1, frac),
+                                              _pos_step(l2, dl2, frac)),
+                                _pos_step(l3, dl3, frac))
+            return a_p[:, None], a_d[:, None]
 
+        with annotate("ipm.newton"):
             # Predictor.
             _, _, dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a = newton(
                 l1 * w1, l2 * w2, l3 * w3)
@@ -366,12 +396,13 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                       + _dot(l2 + a_d * dl2_a, w2 + a_p * dw2_a)
                       + _dot(l3 + a_d * dl3_a, w3 + a_p * dw3_a)) / m_total
             sm = ((mu_aff / torch.clamp(mu, min=1e-30)) ** 3 * mu)[:, None]
-
+        with annotate("ipm.newton"):
             # Corrector.
             du, ds, dl1, dl2, dl3, dw1, dw2, dw3 = newton(
                 l1 * w1 + dl1_a * dw1_a - sm,
                 l2 * w2 + dl2_a * dw2_a - sm,
                 l3 * w3 + dl3_a * dw3_a - sm)
+        with annotate("ipm.step"):
             a_p, a_d = steps(dl1, dl2, dl3, dw1, dw2, dw3, 0.99)
 
             conv = best_merit_n < tol
@@ -390,24 +421,37 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
             stall = torch.where(active, stall_n, stall)
             iters = torch.where(active, iters_n, iters)
             active = ~done & (iters < max_iters)
+        return x, best, best_merit, done, stall, iters, active
 
-    merit, _ = merit_of(x[0], x[1], x[5], x[6], x[7], x[2], x[3], x[4])
-    better = merit < best_merit
-    best_merit = torch.where(better, merit, best_merit)
-    u, s, w1, w2, w3, l1, l2, l3 = [_where(better, new, old)
-                                    for new, old in zip(x, best)]
+    state = (x, best, best_merit, done, stall, iters,
+             ~done & (iters < max_iters))
+    with _loop_precision(ipm_precision, dtype, device):
+        while _still_active(state[-1]):
+            with annotate("ipm.pass"):
+                state = one_pass(*state)
+    x, best, best_merit, done, stall, iters, _ = state
 
-    pol = _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
-                  u, s, l1, l2, l3, w1, w2, w3)
-    merit_p, _ = merit_of(*pol)
-    use_p = torch.isfinite(merit_p) & (merit_p < best_merit)
-    u, s, l1, l2, l3, w1, w2, w3 = [
-        _where(use_p, new, old)
-        for new, old in zip(pol, (u, s, l1, l2, l3, w1, w2, w3))]
-    best_merit = torch.where(use_p, merit_p, best_merit)
+    with annotate("ipm.polish"):
+        merit, _ = merit_of(x[0], x[1], x[5], x[6], x[7], x[2], x[3], x[4])
+        better = merit < best_merit
+        best_merit = torch.where(better, merit, best_merit)
+        u, s, w1, w2, w3, l1, l2, l3 = [_where(better, new, old)
+                                        for new, old in zip(x, best)]
 
-    return _finalize(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, m_total, tol,
-                     u, s, l1, l2, l3, best_merit, iters)
+        pol = _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
+                      u, s, l1, l2, l3, w1, w2, w3)
+        merit_p, _ = merit_of(*pol)
+        use_p = torch.isfinite(merit_p) & (merit_p < best_merit)
+        u, s, l1, l2, l3, w1, w2, w3 = [
+            _where(use_p, new, old)
+            for new, old in zip(pol, (u, s, l1, l2, l3, w1, w2, w3))]
+        best_merit = torch.where(use_p, merit_p, best_merit)
+    if timing.RECORDING:
+        timing.count("ipm.polish_kept", int(use_p.sum()))
+
+    with annotate("ipm.finalize"):
+        return _finalize(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, m_total, tol,
+                         u, s, l1, l2, l3, best_merit, iters)
 
 
 def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,

@@ -21,6 +21,7 @@ from ..core.dynamics import create_double_integrator_matrices
 from ..ops.cuda_kernels import (MAX_N_SAMPLES, all_metrics_halfspaces,
                                 all_metrics_halfspaces_plain)
 from ..ops.halfspace import Halfspace
+from ..utils.timing import annotate
 
 
 class SafeHalfspaces(NamedTuple):
@@ -85,9 +86,10 @@ def halfspace_rows(env: Environment, obstacle_samples, x_ref):
     """
     S, n_obs, n_samples = obstacle_samples.shape[:3]
     n_steps = min(x_ref.shape[-2], env.horizon, obstacle_samples.shape[-2])
-    # [S, n_obs, N, n_steps, 2] -> [S, n_steps, n_obs, N, 2]
-    rows = obstacle_samples[..., :n_steps, :].permute(0, 3, 1, 2, 4)
-    rows = rows.to(env.dtype).reshape(-1, n_samples, 2).contiguous()
+    with annotate("halfspace.rows"):
+        # [S, n_obs, N, n_steps, 2] -> [S, n_steps, n_obs, N, 2]
+        rows = obstacle_samples[..., :n_steps, :].permute(0, 3, 1, 2, 4)
+        rows = rows.to(env.dtype).reshape(-1, n_samples, 2).contiguous()
     ego_pos = x_ref[:, :n_steps].to(env.dtype) @ env.C.T     # [S, n_steps, 2]
     ego = ego_pos[:, :, None, :].expand(S, n_steps, n_obs, 2)
     return rows, ego.reshape(-1, 2).contiguous(), (S, n_steps, n_obs)
@@ -113,8 +115,9 @@ def compute_safe_halfspaces_for_trajectory(env: Environment,
     solve = (all_metrics_halfspaces
              if use_halfspace_kernel(rows.dtype, rows.shape[1])
              else all_metrics_halfspaces_plain)
-    out = solve(rows, ego, env.alpha, env.delta, env.epsilon,
-                env.robot_radius, env.obstacle_radius)
+    with annotate("halfspace.solve"):
+        out = solve(rows, ego, env.alpha, env.delta, env.epsilon,
+                    env.robot_radius, env.obstacle_radius)
     h = out.h.reshape(shape + (2,))
     return SafeHalfspaces(
         mean=Halfspace(out.h_mean.reshape(shape + (2,)),

@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timing import annotate
+
 _EPS = 1e-10
 
 
@@ -83,11 +85,12 @@ def generate_obstacle_scenarios(generator, starts, directions, speeds,
     starts/directions [n_obs, 2] and speeds [n_obs] are tensors on the
     generator's device; n_steps = int(sim_time / dt).
     """
-    nominal = generate_nominal_trajectories(starts, directions, speeds,
-                                            n_steps, dt)
-    nominal = nominal.expand((n_scenarios,) + nominal.shape).contiguous()
-    samples = generate_sample_trajectories(generator, nominal, n_samples,
-                                           noise_var)
-    realization = generate_laplace_realizations(generator, nominal,
-                                                noise_var)
+    with annotate("obstacles.generate"):
+        nominal = generate_nominal_trajectories(starts, directions, speeds,
+                                                n_steps, dt)
+        nominal = nominal.expand((n_scenarios,) + nominal.shape).contiguous()
+        samples = generate_sample_trajectories(generator, nominal, n_samples,
+                                               noise_var)
+        realization = generate_laplace_realizations(generator, nominal,
+                                                    noise_var)
     return ObstacleData(nominal, samples, realization)

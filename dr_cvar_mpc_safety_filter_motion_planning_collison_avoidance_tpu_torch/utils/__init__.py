@@ -1,6 +1,5 @@
 from . import timing
 from . import math_utils
-from .timing import (Timer, timeit, time_blocked, TimingStats, trace,
-                     annotate, block_until_ready)
+from .timing import Timer, time_blocked, trace, annotate, block_until_ready
 from .math_utils import (normalize_vector, is_point_in_halfspace,
                          project_point_to_halfspace)

@@ -17,6 +17,7 @@ the CLI's monte_carlo and timing_analysis modes, against the JAX package.
 
 import csv
 import dataclasses
+import json
 import os
 
 import jax
@@ -259,6 +260,9 @@ def test_cli_monte_carlo_smoke(tmp_path, capsys):
     assert (tmp_path / "head_on_mc_comparison.png").stat().st_size > 0
     assert "Saved MC comparison plot" in out
     assert (prof / "trace.json").exists()
+    spans = json.loads((prof / "spans.json").read_text())
+    assert spans["spans"]["obstacles.generate"][0] == 3
+    assert spans["counts"]["ipm.lanes"] == 3 * 3
 
 
 def test_cli_timing_analysis_smoke(tmp_path, capsys):

@@ -1,5 +1,6 @@
-"""PyTorch port: utils/timing.py (timers, stats and the profiler hooks),
-as tests/test_evaluation.py checks the JAX package's."""
+"""PyTorch port: utils/timing.py (the timers and the profiler hooks), as
+tests/test_evaluation.py checks the JAX package's; the recorder's own
+tests are in test_torch_recorder.py."""
 
 import json
 
@@ -7,8 +8,7 @@ import pytest
 import torch
 
 from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.utils import (
-    Timer, TimingStats, annotate, block_until_ready, time_blocked, timeit,
-    trace)
+    Timer, annotate, block_until_ready, time_blocked, timing, trace)
 
 
 def test_timer_and_stats(capsys):
@@ -16,15 +16,10 @@ def test_timer_and_stats(capsys):
         sum(range(1000))
     assert t.elapsed > 0
     assert "unit: " in capsys.readouterr().out
-    stats = TimingStats()
-    stats.add("x", 1.0)
-    stats.add("x", 3.0)
-    s = stats.get_stats("x")
-    assert s == {"mean": 2.0, "std": 1.0, "min": 1.0, "max": 3.0,
-                 "count": 2}
-    assert stats.get_stats("missing") is None
-    stats.print_stats()
-    assert "Count: 2" in capsys.readouterr().out
+    with Timer("quiet", verbose=False) as quiet:
+        pass
+    assert quiet.elapsed >= 0.0 and capsys.readouterr().out == ""
+    assert quiet.start_time is None
 
 
 def test_timer_stop_waits_on_a_value_and_rejects_a_second_stop():
@@ -36,27 +31,34 @@ def test_timer_stop_waits_on_a_value_and_rejects_a_second_stop():
     assert block_until_ready(value) is value
 
 
-def test_timeit_and_time_blocked(capsys):
-    @timeit
-    def work(n):
-        return torch.arange(n).sum()
-
-    assert int(work(10)) == 45
-    assert "work: " in capsys.readouterr().out
+def test_timeit_and_time_blocked():
     result, seconds = time_blocked(torch.ones, 4)
     assert torch.equal(result, torch.ones(4)) and seconds >= 0.0
+    (total, parts), seconds = time_blocked(
+        lambda n: (torch.arange(n).sum(), [torch.zeros(2)]), 10)
+    assert int(total) == 45 and seconds >= 0.0
 
 
 def test_profiler_trace_hook(tmp_path):
-    """`trace` writes a Chrome trace holding the annotated region, and is
-    a no-op without a directory."""
-    with trace(None):
-        pass
-    log_dir = tmp_path / "trace"
-    with trace(str(log_dir)):
-        with annotate("unit-region"):
-            torch.ones((8, 8)) @ torch.ones((8, 8))
+    """`trace` writes a Chrome trace holding the annotated region and the
+    recorder's totals of the block beside it, and is a no-op without a
+    directory."""
+    was = timing.record(False)
+    try:
+        with trace(None):
+            with annotate("unit-region"):
+                pass
+        assert "unit-region" not in timing.SPANS
+        log_dir = tmp_path / "trace"
+        with trace(str(log_dir)):
+            with annotate("unit-region"):
+                torch.ones((8, 8)) @ torch.ones((8, 8))
+        assert not timing.RECORDING
+    finally:
+        timing.record(was)
     path = log_dir / "trace.json"
     assert path.exists()
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "unit-region" for e in events)
+    spans = json.loads((log_dir / "spans.json").read_text())["spans"]
+    assert spans["unit-region"][0] == 1
