@@ -1,0 +1,22 @@
+"""ipm_graph_pct: the share of the IPM's passes replayed from a CUDA graph
+over the traced window's calls of `_filter_core`: the program's counter
+`ipm.graph_passes` over `ipm.passes`. Where the program counts no graph
+pass at all (a program without the graphs) the reader reads nothing."""
+
+from pathlib import Path
+
+import harness
+
+_rec = harness._load_module(Path(__file__).with_name("_recorder.py"),
+                            "bench_metric__recorder")
+HOOKS = _rec.hooks("_filter_core")
+
+
+def read(trace):
+    values = trace.values.get(__name__)
+    passes = _rec.counter(values, "ipm.passes")
+    graphed = _rec.counter(values, "ipm.graph_passes")
+    if not passes or not any("ipm.graph_passes" in v["counts"]
+                             for v in values or ()):
+        return None
+    return 100.0 * graphed / passes

@@ -1694,11 +1694,15 @@ def phase_inv(pt, torch, dev, card, res, scenario) -> dict:
     B = qp32[1].shape[0]
     solve(*qp32, **kw32, linsolve="inv")                     # warm-up
     out, seen, launches, walls = {}, {}, {}, {}
+    timing = pt.utils.timing
     for ls in ("chol", "inv"):
         reset_launches(pt)
+        was, before = timing.record(True), timing.totals()
         with count_linalg_systems(pt) as counts:
             out[ls], walls[ls] = timed_ms(
                 torch, lambda ls=ls: solve(*qp32, **kw32, linsolve=ls))
+        replayed = timing.since(before)["counts"].get("ipm.graph_passes", 0)
+        timing.record(was)
         seen[ls], launches[ls] = dict(counts), read_launches(pt)
     chol, inv = out["chol"], out["inv"]
     for ls, sol in out.items():
@@ -1713,18 +1717,22 @@ def phase_inv(pt, torch, dev, card, res, scenario) -> dict:
         merits[ls] = float(merit.max())
         gate(merits[ls] < limit, f"[inv] float32 {ls}: float64 merit "
              f"{merits[ls]:.3e} of a converged lane (limit {limit:.3e})")
+    # The pass and the polish replay from CUDA graphs: the spy sees the
+    # systems of each traced pass (its warm-up and its capture) and of the
+    # traced polish (two factorisations, one k = 65 solve); the launch
+    # counters count every replay.
     k60 = seen["inv"].get(("batched_cho_solve", 60, 60), 0)
     max_it = int(inv.iterations.max())
-    passes = max_it + 1 if max_it < kw32["max_iters"] else max_it
-    loop_factors = seen["inv"].get(("batched_cholesky", 60, 1), 0) - 1
+    passes = replayed                   # of the inv call, the loop's last
+    traced = seen["inv"].get(("batched_cho_solve", 60, 65), 0)
+    loop_factors = seen["inv"].get(("batched_cholesky", 60, 1), 0) - traced
     gate(k60 > 0, "[inv]: kernel 3 never ran at k = 60")
-    gate(k60 == passes == loop_factors,
+    gate(k60 == loop_factors == 2 * traced,
          f"[inv]: {k60} solves at k = 60, {loop_factors} factorisations in "
-         f"the loop, {passes} passes")
-    gate(launches["inv"]["batched_cholesky"]
-         == sum(c for (name, _, _), c in seen["inv"].items()
-                if name == "batched_cholesky"),
-         f"[inv]: kernel 2 launches {launches['inv']} against {seen['inv']}")
+         f"the loop, {traced} polishes traced")
+    gate(launches["inv"]["batched_cholesky"] == passes + 2
+         and launches["inv"]["batched_cho_solve"] == passes + 6,
+         f"[inv]: launches {launches['inv']} in {passes} passes")
     gate(("batched_cho_solve", 60, 60) not in seen["chol"],
          "[inv]: chol solved at k = 60")
     u_dist = float((inv.u - chol.u).abs().max())
@@ -1829,7 +1837,8 @@ def phase_benches(pt, torch, dev, card) -> dict:
         flags = []
 
         def spy(S):
-            flags.append(torch.backends.cuda.matmul.allow_tf32)
+            if S.dtype == torch.float32:    # not the float64 rescue's
+                flags.append(torch.backends.cuda.matmul.allow_tf32)
             return real_factor(S)
 
         qps._factor = spy

@@ -8,8 +8,9 @@ callers pass flat `[B, n, n]` batches.
 
 Each wrapper dispatches on its input's device: on the CPU it runs the
 plain PyTorch form (`torch.linalg.cholesky_ex` / `torch.cholesky_solve`,
-any float dtype); on a CUDA tensor it launches its kernel (float32, n <=
-64) or raises.  No fallback on the card.  What the kernels take is
+any float dtype; the plain solve on a CUDA tensor is two triangular
+solves); on a CUDA tensor it launches its kernel (float32, n <= 64) or
+raises.  No fallback on the card.  What the kernels take is
 decided by `check_factor` and `check_solve`, pure functions of device
 type, dtype, shape and strides.
 
@@ -41,10 +42,19 @@ def batched_cholesky_plain(S):
 
 
 def batched_cho_solve_plain(L, r):
-    """Solve L L' x = r; r is [B, n] or [B, n, k]."""
-    if r.dim() == L.dim() - 1:
-        return torch.cholesky_solve(r[..., None], L)[..., 0]
-    return torch.cholesky_solve(r, L)
+    """Solve L L' x = r; r is [B, n] or [B, n, k].  On a CUDA tensor as
+    two triangular solves (cuBLAS): `torch.cholesky_solve`'s batched CUDA
+    path (MAGMA) allocates device memory at every call, which a CUDA
+    graph cannot capture."""
+    vec = r.dim() == L.dim() - 1
+    rr = r[..., None] if vec else r
+    if L.is_cuda:
+        x = torch.linalg.solve_triangular(
+            L.mT, torch.linalg.solve_triangular(L, rr, upper=False),
+            upper=True)
+    else:
+        x = torch.cholesky_solve(rr, L)
+    return x[..., 0] if vec else x
 
 
 def is_contiguous(shape, strides) -> bool:

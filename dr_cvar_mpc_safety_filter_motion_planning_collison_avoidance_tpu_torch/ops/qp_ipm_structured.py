@@ -30,19 +30,36 @@ those of a solve on its own.  The loop runs until every lane has
 stopped; its exit test reads one boolean back to the host per
 iteration.
 
+On a CUDA tensor a pass is hundreds of small kernels, and launching them
+one by one costs the host far more than the device spends on them.  So
+the pass and the work after the loop are captured once per key as CUDA
+graphs (`_Graphs`, at most `GRAPH_CACHE_SIZE` keys, least recent
+dropped) and replayed: the same kernels in the same order, kernels 2 and
+3 among them, on static buffers that hold the call's data and the loop's
+state.  The CPU runs the same functions op by op.
+
+Rescue: a float32 lane that stops unconverged before `max_iters` (the
+stall rule just above float32's merit floor, or a breakdown) is solved
+again in float64, warm from its float32 iterate, op by op (`_rescue`).
+
 With the port's recorder on (`utils/timing.py`), each pass and its parts
 are spans (`ipm.pass`; `ipm.residuals`, `ipm.factor`, `ipm.newton` twice,
 `ipm.step`; the readback `ipm.sync`; after the loop `ipm.polish`,
-`ipm.finalize`) and the solve counts `ipm.lanes`, `ipm.passes`,
-`ipm.lane_passes` (the sum over passes of the lanes still active: the
-readback then reads that number in place of the boolean) and
+`ipm.finalize`; `ipm.rescue`) and the solve counts `ipm.lanes`,
+`ipm.passes`, `ipm.lane_passes` (the sum over passes of the lanes still
+active: the readback then reads that number in place of the boolean),
 `ipm.polish_kept` (lanes whose polished iterate is kept, one more
-readback a solve).  Off, the spans and counters do nothing and the loop
-reads back its boolean.
+readback a solve), `ipm.graph_passes` (passes replayed from a graph),
+`ipm.rescued` and `ipm.rescued_converged`.  On the graph path the pass's
+parts and the polish's inner spans fire only while a graph is captured;
+`ipm.pass` wraps a replay, `ipm.polish` the post-loop replay and
+`ipm.finalize` the copy of its results.  Off, the spans and counters do
+nothing and the loop reads back its boolean.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import NamedTuple
 
@@ -215,6 +232,468 @@ def _still_active(active) -> bool:
     return n > 0
 
 
+class _Data(NamedTuple):
+    """The tensors one solve reads after its set-up."""
+    P_uu: torch.Tensor
+    q_u: torch.Tensor
+    G_u: torch.Tensor
+    h1: torch.Tensor
+    A: torch.Tensor
+    b: torch.Tensor
+    p_ss: torch.Tensor              # [B, m2]
+    q_s: torch.Tensor               # [B, m2]
+    q_scale: torch.Tensor           # [B]
+    eye: torch.Tensor               # [n, n]
+    T: torch.Tensor | None          # box_theta in the working dtype
+    eye_b: torch.Tensor | None      # [B, n, n], linsolve="inv" only
+
+
+class _Spec(NamedTuple):
+    """The numbers of a solve that its device work depends on."""
+    m_total: int
+    reg: float
+    tol: float
+    max_iters: int
+
+
+class _State(NamedTuple):
+    """The loop's state: the iterate (u, s, w1, w2, w3, l1, l2, l3), the
+    best one, and each lane's best merit, stop flag, stall count,
+    iterations and whether it is still active."""
+    x: tuple
+    best: tuple
+    best_merit: torch.Tensor
+    done: torch.Tensor
+    stall: torch.Tensor
+    iters: torch.Tensor
+    active: torch.Tensor
+
+    def flat(self) -> tuple:
+        return (*self.x, *self.best, self.best_merit, self.done, self.stall,
+                self.iters, self.active)
+
+    @classmethod
+    def of(cls, flat) -> "_State":
+        return cls(tuple(flat[:8]), tuple(flat[8:16]), *flat[16:])
+
+
+def _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,
+             box_theta, linsolve):
+    """(_Data, _Spec) of a call: the defaults, the checks, the slack
+    weights broadcast to [B, m2] and the merit's scale."""
+    dtype, device = q_u.dtype, q_u.device
+    reg = 1e-10 if dtype == torch.float64 else 1e-7
+    if tol is None:
+        tol = 1e-9 if dtype == torch.float64 else 3e-5
+    Bsz, n = q_u.shape
+    m1, m2 = h1.shape[-1], b.shape[-1]
+    T = None
+    if box_theta is not None:
+        hp = box_theta.shape[0]
+        if m1 != 2 * n + 2 * hp:
+            raise ValueError(
+                f"box_theta layout expects m1 == 2n + 2hp rows "
+                f"(got m1={m1}, n={n}, hp={hp})")
+        T = box_theta.to(dtype)
+    p_ss = torch.as_tensor(p_ss, dtype=dtype, device=device).expand(Bsz, m2)
+    q_s = torch.as_tensor(q_s, dtype=dtype, device=device).expand(Bsz, m2)
+    q_scale = torch.clamp(torch.maximum(q_u.abs().amax(-1),
+                                        q_s.abs().amax(-1)), min=1.0)
+    eye = torch.eye(n, dtype=dtype, device=device)
+    # "inv" solves S against a materialised identity: kernel 3 takes only
+    # contiguous right-hand sides.  Made once a call, not once a pass.
+    eye_b = eye.expand(Bsz, n, n).contiguous() if linsolve == "inv" else None
+    return (_Data(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, q_scale, eye, T,
+                  eye_b),
+            _Spec(m1 + 2 * m2, reg, float(tol), int(max_iters)))
+
+
+def _ops(d: _Data):
+    """G_u's products: the box structure where box_theta was given."""
+    return _BoxOps(d.T, d.q_u.shape[1]) if d.T is not None else _DenseOps(d.G_u)
+
+
+def _merit(d: _Data, gu, m_total, u, s, l1, l2, l3, w1, w2, w3):
+    """(scaled KKT merit, mu) of an iterate."""
+    mu = (_dot(l1, w1) + _dot(l2, w2) + _dot(l3, w3)) / m_total
+    Au = _mv(d.A, u)
+    viol = torch.maximum(
+        _max_or_zero(torch.relu(gu.mv(u) - d.h1)),
+        torch.maximum(torch.relu(Au - s - d.b).amax(-1),
+                      torch.relu(-s).amax(-1)))
+    rd_u = (_mv(d.P_uu, u) + d.q_u + gu.rmv(l1)
+            + _rmv(d.A, l2)).abs().amax(-1)
+    rd_s = (d.p_ss * s + d.q_s - l2 - l3).abs().amax(-1)
+    return (mu + viol + torch.maximum(rd_u, rd_s)) / d.q_scale, mu
+
+
+def _start(d: _Data, spec: _Spec, warm) -> _State:
+    """The loop's first state: the centred cold start, or `warm` moved
+    back into the interior."""
+    gu = _ops(d)
+    q_u, h1, b = d.q_u, d.h1, d.b
+    Bsz, n = q_u.shape
+    dtype, device = q_u.dtype, q_u.device
+    if warm is None:
+        # Centred cold start.
+        u = q_u.new_zeros((Bsz, n))
+        s = q_u.new_zeros((Bsz, b.shape[-1]))
+        w1 = torch.clamp(h1, min=1.0)
+        w2 = torch.clamp(b, min=1.0)
+        w3 = torch.ones_like(s)
+        l1, l2, l3 = (torch.clamp(1.0 / w, 1e-6, 1e6) for w in (w1, w2, w3))
+    else:
+        # A related solve's iterates, moved back into the interior: the
+        # large floor keeps the central-path mu moderate, which lets a
+        # start that is slightly off converge instead of jamming on the
+        # boundary.
+        floor = 1e-2
+        u, s, l1, l2, l3 = (t.to(dtype) for t in warm)
+        s = torch.relu(s)
+        w1 = torch.clamp(h1 - gu.mv(u), min=floor)
+        w2 = torch.clamp(b - _mv(d.A, u) + s, min=floor)
+        w3 = torch.clamp(s, min=floor)
+        l1, l2, l3 = (torch.clamp(t, floor, 1e6) for t in (l1, l2, l3))
+    x = (u, s, w1, w2, w3, l1, l2, l3)
+    done = torch.zeros(Bsz, dtype=torch.bool, device=device)
+    iters = torch.zeros(Bsz, dtype=torch.int32, device=device)
+    return _State(x, x, torch.full((Bsz,), 1e30, dtype=dtype, device=device),
+                  done, torch.zeros(Bsz, dtype=torch.int32, device=device),
+                  iters, ~done & (iters < spec.max_iters))
+
+
+def _one_pass(d: _Data, spec: _Spec, st: _State) -> _State:
+    """One pass of the loop over every lane: the next state."""
+    P_uu, q_u, h1, A, b, p_ss, q_s = d.P_uu, d.q_u, d.h1, d.A, d.b, d.p_ss, d.q_s
+    m_total, tol, max_iters = spec.m_total, spec.tol, spec.max_iters
+    gu = _ops(d)
+    x, best, best_merit = st.x, st.best, st.best_merit
+    done, stall, iters, active = st.done, st.stall, st.iters, st.active
+    with annotate("ipm.residuals"):
+        u, s, w1, w2, w3, l1, l2, l3 = x
+        merit, mu = _merit(d, gu, m_total, u, s, l1, l2, l3, w1, w2, w3)
+        better = merit < best_merit
+        # Stagnation / breakdown: count iterations without a 0.5%
+        # best-merit improvement; a non-finite merit means the iterate
+        # broke down and the tracked best iterate is the answer.
+        improved = merit < best_merit * 0.995
+        stall_n = torch.where(improved, torch.zeros_like(stall), stall + 1)
+        broke = ~torch.isfinite(merit)
+        best_merit_n = torch.where(better, merit, best_merit)
+        best_n = [_where(better, new, old) for new, old in zip(x, best)]
+
+        r_du = _mv(P_uu, u) + q_u + gu.rmv(l1) + _rmv(A, l2)
+        r_ds = p_ss * s + q_s - l2 - l3
+        r_p1 = gu.mv(u) + w1 - h1
+        r_p2 = _mv(A, u) - s + w2 - b
+        r_p3 = -s + w3
+
+        d1 = torch.clamp(l1 / w1, 1e-10, 1e10)
+        d2 = torch.clamp(l2 / w2, 1e-10, 1e10)
+        d3 = torch.clamp(l3 / w3, 1e-10, 1e10)
+        m_ss = p_ss + d2 + d3
+        d2_eff = d2 - d2 * d2 / m_ss
+        S = (P_uu + gu.quad(d1)
+             + (A.transpose(-1, -2) * d2_eff[:, None, :]) @ A
+             + spec.reg * d.eye)
+    with annotate("ipm.factor"):
+        Lchol = _factor(S)
+        S_inv = None if d.eye_b is None else _solve(Lchol, d.eye_b)
+
+    def newton(rc1, rc2, rc3):
+        t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
+        rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
+               - _rmv(A, d2 * r_p2 - rc2 / w2)
+               + _rmv(A, d2 * t_s / m_ss))
+        du = (_mv(S_inv, rhs) if S_inv is not None
+              else _solve(Lchol, rhs))
+        Adu = _mv(A, du)
+        ds = (t_s + d2 * Adu) / m_ss
+        dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
+        dl2 = d2 * (Adu - ds + r_p2) - rc2 / w2
+        dl3 = d3 * (-ds + r_p3) - rc3 / w3
+        dw1 = -(rc1 + w1 * dl1) / l1
+        dw2 = -(rc2 + w2 * dl2) / l2
+        dw3 = -(rc3 + w3 * dl3) / l3
+        return du, ds, dl1, dl2, dl3, dw1, dw2, dw3
+
+    def steps(dl1, dl2, dl3, dw1, dw2, dw3, frac):
+        a_p = torch.minimum(torch.minimum(_pos_step(w1, dw1, frac),
+                                          _pos_step(w2, dw2, frac)),
+                            _pos_step(w3, dw3, frac))
+        a_d = torch.minimum(torch.minimum(_pos_step(l1, dl1, frac),
+                                          _pos_step(l2, dl2, frac)),
+                            _pos_step(l3, dl3, frac))
+        return a_p[:, None], a_d[:, None]
+
+    with annotate("ipm.newton"):
+        # Predictor.
+        _, _, dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a = newton(
+            l1 * w1, l2 * w2, l3 * w3)
+        a_p, a_d = steps(dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a, 1.0)
+        mu_aff = (_dot(l1 + a_d * dl1_a, w1 + a_p * dw1_a)
+                  + _dot(l2 + a_d * dl2_a, w2 + a_p * dw2_a)
+                  + _dot(l3 + a_d * dl3_a, w3 + a_p * dw3_a)) / m_total
+        sm = ((mu_aff / torch.clamp(mu, min=1e-30)) ** 3 * mu)[:, None]
+    with annotate("ipm.newton"):
+        # Corrector.
+        du, ds, dl1, dl2, dl3, dw1, dw2, dw3 = newton(
+            l1 * w1 + dl1_a * dw1_a - sm,
+            l2 * w2 + dl2_a * dw2_a - sm,
+            l3 * w3 + dl3_a * dw3_a - sm)
+    with annotate("ipm.step"):
+        a_p, a_d = steps(dl1, dl2, dl3, dw1, dw2, dw3, 0.99)
+
+        conv = best_merit_n < tol
+        done_n = done | conv | broke | (stall_n >= 10)
+        stepped = [u + a_p * du, s + a_p * ds,
+                   w1 + a_p * dw1, w2 + a_p * dw2, w3 + a_p * dw3,
+                   l1 + a_d * dl1, l2 + a_d * dl2, l3 + a_d * dl3]
+        x_n = [_where(done_n, old, new) for new, old in zip(stepped, x)]
+        iters_n = torch.where(done_n, iters, iters + 1)
+
+        # A lane that had stopped before this pass keeps its whole state.
+        x = tuple(_where(active, new, old) for new, old in zip(x_n, x))
+        best = tuple(_where(active, new, old)
+                     for new, old in zip(best_n, best))
+        best_merit = torch.where(active, best_merit_n, best_merit)
+        done = torch.where(active, done_n, done)
+        stall = torch.where(active, stall_n, stall)
+        iters = torch.where(active, iters_n, iters)
+        active = ~done & (iters < max_iters)
+    return _State(x, best, best_merit, done, stall, iters, active)
+
+
+def _post(d: _Data, spec: _Spec, st: _State):
+    """After the loop: the best iterate, its polish where that lowers the
+    merit, and the reported solution.  Returns (MPCQPSolution, the lanes
+    whose polished iterate is kept)."""
+    gu = _ops(d)
+    x, best = st.x, st.best
+    with annotate("ipm.polish"):
+        merit, _ = _merit(d, gu, spec.m_total, x[0], x[1], x[5], x[6], x[7],
+                          x[2], x[3], x[4])
+        better = merit < st.best_merit
+        best_merit = torch.where(better, merit, st.best_merit)
+        u, s, w1, w2, w3, l1, l2, l3 = [_where(better, new, old)
+                                        for new, old in zip(x, best)]
+
+        pol = _polish(d.P_uu, d.q_u, d.G_u, d.h1, d.A, d.b, d.p_ss, d.q_s,
+                      spec.reg, u, s, l1, l2, l3, w1, w2, w3)
+        merit_p, _ = _merit(d, gu, spec.m_total, *pol)
+        use_p = torch.isfinite(merit_p) & (merit_p < best_merit)
+        u, s, l1, l2, l3, w1, w2, w3 = [
+            _where(use_p, new, old)
+            for new, old in zip(pol, (u, s, l1, l2, l3, w1, w2, w3))]
+        best_merit = torch.where(use_p, merit_p, best_merit)
+    with annotate("ipm.finalize"):
+        sol = _finalize(d.P_uu, d.q_u, d.G_u, d.h1, d.A, d.b, d.p_ss, d.q_s,
+                        spec.m_total, spec.tol, u, s, l1, l2, l3, best_merit,
+                        st.iters)
+    return sol, use_p
+
+
+def _ipm_eager(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
+    """The solve op by op: the CPU's path, and the rescue's."""
+    st = _start(d, spec, warm)
+    with _loop_precision(ipm_precision, d.q_u.dtype, d.q_u.device):
+        while _still_active(st.active):
+            with annotate("ipm.pass"):
+                st = _one_pass(d, spec, st)
+    sol, use_p = _post(d, spec, st)
+    if timing.RECORDING:
+        timing.count("ipm.polish_kept", int(use_p.sum()))
+    return sol
+
+
+# Module-level names the captured work calls at capture time, so a
+# rebinding (experiments/qpbench.py's variants, a test's spy) is captured
+# as itself: each is part of the graphs' key.
+_CAPTURED_NAMES = ("_factor", "_solve", "_select_rows", "_polish",
+                   "POLISH_REFINEMENTS", "batched_cholesky",
+                   "batched_cho_solve", "batched_cholesky_plain",
+                   "batched_cho_solve_plain")
+GRAPH_CACHE_SIZE = 8     # keys whose graphs are kept, least recent dropped
+_KERNELS = (batched_cholesky, batched_cho_solve)   # they own `.launches`
+
+
+def _graph_key(d: _Data, spec: _Spec, ipm_precision: str) -> tuple:
+    """Everything that changes the captured work: every tensor's device,
+    dtype, shape and strides (so B, n, m1, m2, shared or per-lane P_uu
+    and G_u, box or dense, "inv"), the numbers of the spec, the loop's
+    precision and the process's float32 matmul settings, and the
+    module-level names the work calls."""
+    names = globals()
+    return (tuple(None if t is None else
+                  (t.device, t.dtype, tuple(t.shape), t.stride()) for t in d),
+            spec, ipm_precision, torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32,
+            tuple(names[name] for name in _CAPTURED_NAMES))
+
+
+def _capture(fn):
+    """(graph, fn's result) with fn's device work captured on the current
+    stream; a capture that fails raises, after ending the capture.  Only
+    this thread's unsafe CUDA calls break the capture (another thread's,
+    such as a process group's watchdog polling its events, do not)."""
+    graph = torch.cuda.CUDAGraph()
+    graph.capture_begin(capture_error_mode="thread_local")
+    try:
+        out = fn()
+    except BaseException:
+        with contextlib.suppress(RuntimeError):
+            graph.capture_end()
+        raise
+    graph.capture_end()
+    return graph, out
+
+
+class _Graphs:
+    """The CUDA graphs of one key: a pass of the loop, and the work after
+    it (best iterate, polish, acceptance, finalize).  Both read and write
+    only static buffers: the call's data is copied into `d` and its first
+    state into `state` before the loop; the pass graph writes the next
+    state back into `state`; the post graph's results are cloned out by
+    the caller.  The hand kernels' `.launches` count each replay's
+    launches; the warm-up and the capture are not counted."""
+
+    _side: dict = {}       # device -> the stream the graphs are captured on
+
+    def __init__(self, d: _Data, st0: _State):
+        self.d = _Data(*(None if t is None else torch.empty_like(t)
+                         for t in d))
+        self.state = _State.of([torch.empty_like(t) for t in st0.flat()])
+
+    def load(self, d: _Data, st0: _State):
+        for dst, src in zip(self.d, d):
+            if dst is not None:
+                dst.copy_(src)
+        for dst, src in zip(self.state.flat(), st0.flat()):
+            dst.copy_(src)
+
+    def _step(self, spec: _Spec):
+        new = _one_pass(self.d, spec, self.state)
+        for dst, src in zip(self.state.flat(), new.flat()):
+            dst.copy_(src)
+
+    def capture(self, spec: _Spec, ipm_precision: str):
+        """Warm up one pass on the capture stream (library handles and
+        lazily loaded kernels are set up outside any capture), then
+        capture the pass and the post-loop work."""
+        device = self.d.q_u.device
+        side = self._side.get(device)
+        if side is None:
+            side = self._side[device] = torch.cuda.Stream(device)
+        current = torch.cuda.current_stream(device)
+        side.wait_stream(current)
+        before = [fn.launches for fn in _KERNELS]
+        try:
+            with torch.cuda.stream(side):
+                with _loop_precision(ipm_precision, self.d.q_u.dtype, device):
+                    _one_pass(self.d, spec, self.state)
+                    mid = [fn.launches for fn in _KERNELS]
+                    self.pass_graph, _ = _capture(lambda: self._step(spec))
+                after_pass = [fn.launches for fn in _KERNELS]
+                self.post_graph, (self.sol, self.use_p) = _capture(
+                    lambda: _post(self.d, spec, self.state))
+                after_post = [fn.launches for fn in _KERNELS]
+        finally:
+            for fn, n in zip(_KERNELS, before):
+                fn.launches = n
+        current.wait_stream(side)
+        self.pass_launches = [b - a for a, b in zip(mid, after_pass)]
+        self.post_launches = [b - a for a, b in zip(after_pass, after_post)]
+
+    def replay_pass(self):
+        self.pass_graph.replay()
+        for fn, n in zip(_KERNELS, self.pass_launches):
+            fn.launches += n
+        timing.count("ipm.graph_passes")
+
+    def replay_post(self):
+        self.post_graph.replay()
+        for fn, n in zip(_KERNELS, self.post_launches):
+            fn.launches += n
+
+
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+
+
+def _ipm_graphs(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
+    """The solve on a CUDA tensor: the first state op by op, then each
+    pass and the post-loop work replayed from the key's graphs, captured
+    at the key's first call.  Passes, iterations and every lane's
+    iterates are the eager loop's: the same kernels run in the same
+    order, and the loop reads back `active` once a pass as it does."""
+    key = _graph_key(d, spec, ipm_precision)
+    st0 = _start(d, spec, warm)
+    graphs = _GRAPHS.pop(key, None)
+    if graphs is None:
+        graphs = _Graphs(d, st0)
+        graphs.load(d, st0)
+        graphs.capture(spec, ipm_precision)
+    else:
+        graphs.load(d, st0)
+    _GRAPHS[key] = graphs
+    while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    while _still_active(graphs.state.active):
+        with annotate("ipm.pass"):
+            graphs.replay_pass()
+    with annotate("ipm.polish"):
+        graphs.replay_post()
+    with annotate("ipm.finalize"):
+        sol = graphs.sol
+        sol = MPCQPSolution(*(t.clone() for t in sol[:-1]),
+                            tuple(t.clone() for t in sol.mults))
+    if timing.RECORDING:
+        timing.count("ipm.polish_kept", int(graphs.use_p.sum()))
+    return sol
+
+
+def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution,
+            linsolve: str) -> MPCQPSolution:
+    """Re-solve in float64 the float32 lanes that stopped unconverged
+    before the iteration cap (the stall rule or a breakdown), warm from
+    their float32 iterates, with the same cap and tolerance; the cold
+    float64 start can stall where the float32 one did.  One readback a
+    call finds none.  A rescued lane's `iterations` is its float32 count
+    plus the re-solve's; lanes at the cap keep their result."""
+    need = ~sol.converged & (sol.iterations < spec.max_iters)
+    if not bool(need.any()):
+        return sol
+    idx = need.nonzero()[:, 0]
+    f64 = torch.float64
+    lanes = lambda t: t[idx].to(f64)                          # noqa: E731
+    per_lane = lambda t: (t[idx] if t.dim() == 3 else t).to(f64)  # noqa: E731
+    with annotate("ipm.rescue"):
+        was = timing.record(False)
+        try:
+            d64, spec64 = _prepare(
+                per_lane(d.P_uu), lanes(d.q_u), per_lane(d.G_u),
+                lanes(d.h1), lanes(d.A), lanes(d.b), lanes(d.p_ss),
+                lanes(d.q_s), spec.max_iters, spec.tol,
+                None if d.T is None else d.T.to(f64), linsolve)
+            warm = (sol.u, sol.s, *sol.mults)
+            r = _ipm_eager(d64, spec64, tuple(lanes(t) for t in warm),
+                           "highest")
+        finally:
+            timing.record(was)
+    timing.count("ipm.rescued", int(idx.numel()))
+    timing.count("ipm.rescued_converged", int(r.converged.sum()))
+
+    def put(old, new):
+        return old.index_copy(0, idx, new.to(old.dtype))
+
+    fields = {f: put(getattr(sol, f), getattr(r, f))
+              for f in ("u", "s", "obj", "gap", "prim_res", "dual_res",
+                        "converged", "merit")}
+    fields["iterations"] = put(sol.iterations,
+                               sol.iterations[idx] + r.iterations)
+    return MPCQPSolution(**fields, mults=tuple(
+        put(old, new) for old, new in zip(sol.mults, r.mults)))
+
+
 def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                  max_iters: int = 60, tol: float | None = None,
                  warm=None, box_theta=None, linsolve: str = "chol",
@@ -256,6 +735,11 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     The IPM's answer goes through the active-set Newton polish
     (`_polish`), which takes a float32 iterate from the IPM's merit floor
     (~1e-4 relative) to linear-solve accuracy (~1e-6).
+
+    On a CUDA tensor the loop's passes and the work after it replay from
+    CUDA graphs (`_ipm_graphs`); on the CPU they run op by op.  Either
+    way a float32 lane that stops unconverged before `max_iters` is
+    solved again in float64 (`_rescue`).
     """
     if linsolve not in LINSOLVES:
         raise ValueError(f"linsolve must be one of {LINSOLVES}, got "
@@ -263,195 +747,16 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     if ipm_precision not in IPM_PRECISIONS:
         raise ValueError(f"ipm_precision must be one of {IPM_PRECISIONS}, "
                          f"got {ipm_precision!r}")
-    dtype, device = q_u.dtype, q_u.device
-    reg = 1e-10 if dtype == torch.float64 else 1e-7
-    if tol is None:
-        tol = 1e-9 if dtype == torch.float64 else 3e-5
-    Bsz, n = q_u.shape
-    m1, m2 = h1.shape[-1], b.shape[-1]
-    timing.count("ipm.lanes", Bsz)
-    if box_theta is not None:
-        hp = box_theta.shape[0]
-        if m1 != 2 * n + 2 * hp:
-            raise ValueError(
-                f"box_theta layout expects m1 == 2n + 2hp rows "
-                f"(got m1={m1}, n={n}, hp={hp})")
-        gu = _BoxOps(box_theta.to(dtype), n)
+    timing.count("ipm.lanes", q_u.shape[0])
+    d, spec = _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,
+                       box_theta, linsolve)
+    if q_u.is_cuda and q_u.shape[0]:
+        sol = _ipm_graphs(d, spec, warm, ipm_precision)
     else:
-        gu = _DenseOps(G_u)
-    m_total = m1 + 2 * m2
-    p_ss = torch.as_tensor(p_ss, dtype=dtype, device=device).expand(Bsz, m2)
-    q_s = torch.as_tensor(q_s, dtype=dtype, device=device).expand(Bsz, m2)
-
-    q_scale = torch.clamp(torch.maximum(q_u.abs().amax(-1),
-                                        q_s.abs().amax(-1)), min=1.0)
-    eye = torch.eye(n, dtype=dtype, device=device)
-
-    def merit_of(u, s, l1, l2, l3, w1, w2, w3):
-        mu = (_dot(l1, w1) + _dot(l2, w2) + _dot(l3, w3)) / m_total
-        Au = _mv(A, u)
-        viol = torch.maximum(
-            _max_or_zero(torch.relu(gu.mv(u) - h1)),
-            torch.maximum(torch.relu(Au - s - b).amax(-1),
-                          torch.relu(-s).amax(-1)))
-        rd_u = (_mv(P_uu, u) + q_u + gu.rmv(l1) + _rmv(A, l2)).abs().amax(-1)
-        rd_s = (p_ss * s + q_s - l2 - l3).abs().amax(-1)
-        return (mu + viol + torch.maximum(rd_u, rd_s)) / q_scale, mu
-
-    if warm is None:
-        # Centred cold start.
-        u = q_u.new_zeros((Bsz, n))
-        s = q_u.new_zeros((Bsz, m2))
-        w1 = torch.clamp(h1, min=1.0)
-        w2 = torch.clamp(b, min=1.0)
-        w3 = torch.ones_like(s)
-        l1, l2, l3 = (torch.clamp(1.0 / w, 1e-6, 1e6) for w in (w1, w2, w3))
-    else:
-        # A related solve's iterates, moved back into the interior: the
-        # large floor keeps the central-path mu moderate, which lets a
-        # start that is slightly off converge instead of jamming on the
-        # boundary.
-        floor = 1e-2
-        u, s, l1, l2, l3 = (t.to(dtype) for t in warm)
-        s = torch.relu(s)
-        w1 = torch.clamp(h1 - gu.mv(u), min=floor)
-        w2 = torch.clamp(b - _mv(A, u) + s, min=floor)
-        w3 = torch.clamp(s, min=floor)
-        l1, l2, l3 = (torch.clamp(t, floor, 1e6) for t in (l1, l2, l3))
-    x = [u, s, w1, w2, w3, l1, l2, l3]          # the iterate
-    best_merit = torch.full((Bsz,), 1e30, dtype=dtype, device=device)
-    best = list(x)
-    done = torch.zeros(Bsz, dtype=torch.bool, device=device)
-    stall = torch.zeros(Bsz, dtype=torch.int32, device=device)
-    iters = torch.zeros(Bsz, dtype=torch.int32, device=device)
-    # "inv" solves S against a materialised identity: kernel 3 takes only
-    # contiguous right-hand sides.  Made once a call, not once a pass.
-    eye_b = eye.expand(Bsz, n, n).contiguous() if linsolve == "inv" else None
-
-    def one_pass(x, best, best_merit, done, stall, iters, active):
-        """One pass of the loop over every lane: the new (x, best,
-        best_merit, done, stall, iters, active)."""
-        with annotate("ipm.residuals"):
-            u, s, w1, w2, w3, l1, l2, l3 = x
-            merit, mu = merit_of(u, s, l1, l2, l3, w1, w2, w3)
-            better = merit < best_merit
-            # Stagnation / breakdown: count iterations without a 0.5%
-            # best-merit improvement; a non-finite merit means the iterate
-            # broke down and the tracked best iterate is the answer.
-            improved = merit < best_merit * 0.995
-            stall_n = torch.where(improved, torch.zeros_like(stall), stall + 1)
-            broke = ~torch.isfinite(merit)
-            best_merit_n = torch.where(better, merit, best_merit)
-            best_n = [_where(better, new, old) for new, old in zip(x, best)]
-
-            r_du = _mv(P_uu, u) + q_u + gu.rmv(l1) + _rmv(A, l2)
-            r_ds = p_ss * s + q_s - l2 - l3
-            r_p1 = gu.mv(u) + w1 - h1
-            r_p2 = _mv(A, u) - s + w2 - b
-            r_p3 = -s + w3
-
-            d1 = torch.clamp(l1 / w1, 1e-10, 1e10)
-            d2 = torch.clamp(l2 / w2, 1e-10, 1e10)
-            d3 = torch.clamp(l3 / w3, 1e-10, 1e10)
-            m_ss = p_ss + d2 + d3
-            d2_eff = d2 - d2 * d2 / m_ss
-            S = (P_uu + gu.quad(d1)
-                 + (A.transpose(-1, -2) * d2_eff[:, None, :]) @ A + reg * eye)
-        with annotate("ipm.factor"):
-            Lchol = _factor(S)
-            S_inv = None if eye_b is None else _solve(Lchol, eye_b)
-
-        def newton(rc1, rc2, rc3):
-            t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
-            rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
-                   - _rmv(A, d2 * r_p2 - rc2 / w2)
-                   + _rmv(A, d2 * t_s / m_ss))
-            du = (_mv(S_inv, rhs) if S_inv is not None
-                  else _solve(Lchol, rhs))
-            Adu = _mv(A, du)
-            ds = (t_s + d2 * Adu) / m_ss
-            dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
-            dl2 = d2 * (Adu - ds + r_p2) - rc2 / w2
-            dl3 = d3 * (-ds + r_p3) - rc3 / w3
-            dw1 = -(rc1 + w1 * dl1) / l1
-            dw2 = -(rc2 + w2 * dl2) / l2
-            dw3 = -(rc3 + w3 * dl3) / l3
-            return du, ds, dl1, dl2, dl3, dw1, dw2, dw3
-
-        def steps(dl1, dl2, dl3, dw1, dw2, dw3, frac):
-            a_p = torch.minimum(torch.minimum(_pos_step(w1, dw1, frac),
-                                              _pos_step(w2, dw2, frac)),
-                                _pos_step(w3, dw3, frac))
-            a_d = torch.minimum(torch.minimum(_pos_step(l1, dl1, frac),
-                                              _pos_step(l2, dl2, frac)),
-                                _pos_step(l3, dl3, frac))
-            return a_p[:, None], a_d[:, None]
-
-        with annotate("ipm.newton"):
-            # Predictor.
-            _, _, dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a = newton(
-                l1 * w1, l2 * w2, l3 * w3)
-            a_p, a_d = steps(dl1_a, dl2_a, dl3_a, dw1_a, dw2_a, dw3_a, 1.0)
-            mu_aff = (_dot(l1 + a_d * dl1_a, w1 + a_p * dw1_a)
-                      + _dot(l2 + a_d * dl2_a, w2 + a_p * dw2_a)
-                      + _dot(l3 + a_d * dl3_a, w3 + a_p * dw3_a)) / m_total
-            sm = ((mu_aff / torch.clamp(mu, min=1e-30)) ** 3 * mu)[:, None]
-        with annotate("ipm.newton"):
-            # Corrector.
-            du, ds, dl1, dl2, dl3, dw1, dw2, dw3 = newton(
-                l1 * w1 + dl1_a * dw1_a - sm,
-                l2 * w2 + dl2_a * dw2_a - sm,
-                l3 * w3 + dl3_a * dw3_a - sm)
-        with annotate("ipm.step"):
-            a_p, a_d = steps(dl1, dl2, dl3, dw1, dw2, dw3, 0.99)
-
-            conv = best_merit_n < tol
-            done_n = done | conv | broke | (stall_n >= 10)
-            stepped = [u + a_p * du, s + a_p * ds,
-                       w1 + a_p * dw1, w2 + a_p * dw2, w3 + a_p * dw3,
-                       l1 + a_d * dl1, l2 + a_d * dl2, l3 + a_d * dl3]
-            x_n = [_where(done_n, old, new) for new, old in zip(stepped, x)]
-            iters_n = torch.where(done_n, iters, iters + 1)
-
-            # A lane that had stopped before this pass keeps its whole state.
-            x = [_where(active, new, old) for new, old in zip(x_n, x)]
-            best = [_where(active, new, old) for new, old in zip(best_n, best)]
-            best_merit = torch.where(active, best_merit_n, best_merit)
-            done = torch.where(active, done_n, done)
-            stall = torch.where(active, stall_n, stall)
-            iters = torch.where(active, iters_n, iters)
-            active = ~done & (iters < max_iters)
-        return x, best, best_merit, done, stall, iters, active
-
-    state = (x, best, best_merit, done, stall, iters,
-             ~done & (iters < max_iters))
-    with _loop_precision(ipm_precision, dtype, device):
-        while _still_active(state[-1]):
-            with annotate("ipm.pass"):
-                state = one_pass(*state)
-    x, best, best_merit, done, stall, iters, _ = state
-
-    with annotate("ipm.polish"):
-        merit, _ = merit_of(x[0], x[1], x[5], x[6], x[7], x[2], x[3], x[4])
-        better = merit < best_merit
-        best_merit = torch.where(better, merit, best_merit)
-        u, s, w1, w2, w3, l1, l2, l3 = [_where(better, new, old)
-                                        for new, old in zip(x, best)]
-
-        pol = _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
-                      u, s, l1, l2, l3, w1, w2, w3)
-        merit_p, _ = merit_of(*pol)
-        use_p = torch.isfinite(merit_p) & (merit_p < best_merit)
-        u, s, l1, l2, l3, w1, w2, w3 = [
-            _where(use_p, new, old)
-            for new, old in zip(pol, (u, s, l1, l2, l3, w1, w2, w3))]
-        best_merit = torch.where(use_p, merit_p, best_merit)
-    if timing.RECORDING:
-        timing.count("ipm.polish_kept", int(use_p.sum()))
-
-    with annotate("ipm.finalize"):
-        return _finalize(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, m_total, tol,
-                         u, s, l1, l2, l3, best_merit, iters)
+        sol = _ipm_eager(d, spec, warm, ipm_precision)
+    if q_u.dtype == torch.float64:
+        return sol
+    return _rescue(d, spec, sol, linsolve)
 
 
 def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,

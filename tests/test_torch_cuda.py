@@ -691,7 +691,10 @@ def test_cho_solve_k60_against_the_identity(cuda, B):
 def test_inv_runs_kernel_3_at_k60_once_a_pass(cuda):
     """linsolve="inv" on float32 H = 30 QPs (qpbench's data): one k = 60
     solve on kernel 3 a pass, every other solve of the call on kernel 3
-    too; "high" leaves TF32 off after the call."""
+    too; "high" leaves TF32 off after the call.  The pass and the polish
+    replay from CUDA graphs, so the spy sees the solves of their warm-up
+    and capture (one k = 60 solve a traced pass, one k = 65 solve a traced
+    polish), and the launch counter each replay's."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments import (
         qpbench)
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
@@ -706,15 +709,17 @@ def test_inv_runs_kernel_3_at_k60_once_a_pass(cuda):
         return real(L, r)
 
     qps.batched_cho_solve = spy
+    was, totals = pt.utils.timing.record(True), pt.utils.timing.totals()
     try:
         before = cl.batched_cho_solve.launches
         inv = qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5, linsolve="inv")
         torch.cuda.synchronize()
+        passes = pt.utils.timing.since(totals)["counts"]["ipm.graph_passes"]
     finally:
         qps.batched_cho_solve = real
-    assert cl.batched_cho_solve.launches - before == len(ks)
-    passes = int(inv.iterations.max()) + 1
-    assert ks.count(60) == min(passes, 35)
+        pt.utils.timing.record(was)
+    assert cl.batched_cho_solve.launches - before == passes + 6
+    assert set(ks) == {60, 65, 1} and ks.count(60) == 2 * ks.count(65) > 0
     assert bool(torch.isfinite(inv.u).all())
     qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5, ipm_precision="high")
     assert not torch.backends.cuda.matmul.allow_tf32

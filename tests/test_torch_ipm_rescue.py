@@ -1,0 +1,191 @@
+"""PyTorch port: the structured IPM's float64 rescue of float32 lanes that
+stop unconverged below the iteration cap, the key of its CUDA graphs, and
+the Monte Carlo scan of failing runs (`experiments/mc_failures.py`), on
+the CPU.
+
+The rescue re-solves such a lane in float64, warm from its float32
+iterate, with the float32 call's cap and tolerance: the lane comes back
+converged and within 1e-4 of the float64 solve of the same QP; a lane at
+the cap keeps its fallback.  Two `head_on_n20` studies (300 runs, float32,
+qp_iters 60) whose float32 loop stalls one QP each above the convergence
+line end with every run converged.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments import (
+    qpbench)
+from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
+    qp_ipm_structured as qps)
+from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.utils import (
+    timing)
+
+ROOT = Path(__file__).resolve().parents[1]
+F32, F64 = torch.float32, torch.float64
+
+
+def bench_qps(batch, dtype=F32, seed=0):
+    """qpbench's QPs (H = 30, 3 obstacles, box rows), with box_theta."""
+    prob, data = qpbench.make_data(batch, seed, "cpu")
+    qp = [t.to(dtype) if torch.is_tensor(t) else t
+          for t in qpbench.assemble(prob, *data)]
+    return qp, prob.Theta.reshape(-1, qp[0].shape[0]).to(dtype)
+
+
+def test_a_lane_stopped_below_the_cap_is_rescued():
+    qp, theta = bench_qps(8)
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta, "chol")
+    sol = qps._ipm_eager(d, spec, None, "highest")
+    assert bool(sol.converged.all())
+    # Lane 5 reported as stopped unconverged after 7 float32 iterations.
+    fake = sol._replace(converged=sol.converged.clone(),
+                        iterations=sol.iterations.clone())
+    fake.converged[5] = False
+    fake.iterations[5] = 7
+    was, before = timing.record(True), timing.totals()
+    try:
+        out = qps._rescue(d, spec, fake, "chol")
+        added = timing.since(before)
+    finally:
+        timing.record(was)
+    assert added["counts"]["ipm.rescued"] == 1
+    assert added["counts"]["ipm.rescued_converged"] == 1
+    assert "ipm.passes" not in added["counts"]      # the re-solve uncounted
+    assert bool(out.converged.all())
+    assert out.u.dtype == F32 and 7 < int(out.iterations[5]) <= 7 + 60
+    ref = qps.solve_mpc_qp(*[t.to(F64) if torch.is_tensor(t) else t
+                             for t in qp], max_iters=60,
+                           box_theta=theta.to(F64))
+    assert float((out.u[5].double() - ref.u[5]).abs().max()) < 1e-4
+    others = torch.arange(8) != 5
+    for a, b in zip((out.u, out.s, out.iterations, *out.mults),
+                    (sol.u, sol.s, sol.iterations, *sol.mults)):
+        assert torch.equal(a[others], b[others])
+
+
+def test_lanes_that_break_down_are_rescued():
+    """linsolve="inv" in float32 breaks down on two of qpbench's 16 QPs
+    (S^-1 squares the condition number) well before the cap: the call
+    answers them from the float64 re-solve."""
+    qp, _ = bench_qps(16)
+    d, spec = qps._prepare(*qp, 35, 3e-5, None, "inv")
+    plain = qps._ipm_eager(d, spec, None, "highest")
+    lost = ~plain.converged
+    assert bool(lost.any()) and bool((plain.iterations[lost] < 35).all())
+    sol = qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5, linsolve="inv")
+    assert bool(sol.converged.all())
+    assert bool((sol.iterations[lost] > plain.iterations[lost]).all())
+    assert torch.equal(sol.u[~lost], plain.u[~lost])
+    ref = qps.solve_mpc_qp(*[t.to(F64) if torch.is_tensor(t) else t
+                             for t in qp], max_iters=35)
+    assert float((sol.u[lost].double() - ref.u[lost]).abs().max()) < 1e-4
+
+
+def test_a_lane_at_the_cap_keeps_its_answer():
+    qp, theta = bench_qps(4)
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta, "chol")
+    sol = qps._ipm_eager(d, spec, None, "highest")
+    fake = sol._replace(converged=torch.zeros_like(sol.converged),
+                        iterations=torch.full_like(sol.iterations, 60))
+    assert qps._rescue(d, spec, fake, "chol") is fake
+    capped = qps.solve_mpc_qp(*qp, max_iters=1, tol=3e-5, box_theta=theta)
+    d1, spec1 = qps._prepare(*qp, 1, 3e-5, theta, "chol")
+    eager = qps._ipm_eager(d1, spec1, None, "highest")
+    assert not bool(capped.converged.any())
+    for a, b in zip(capped[:-1], eager[:-1]):
+        assert torch.equal(a, b)
+
+
+def test_float64_is_never_rescued(monkeypatch):
+    calls = []
+    monkeypatch.setattr(qps, "_rescue", lambda *a: calls.append(a))
+    qp, theta = bench_qps(4, F64)
+    sol = qps.solve_mpc_qp(*qp, max_iters=3, box_theta=theta)
+    assert not calls and not bool(sol.converged.all())
+
+
+def test_graph_key_holds_what_changes_the_captured_work(monkeypatch):
+    """The key of the CUDA graphs (computed from metadata alone, so on the
+    CPU too): equal for the same shapes and settings with other data,
+    different for each setting the captured work depends on."""
+    qp, theta = bench_qps(4)
+    other, _ = bench_qps(4, seed=1)
+
+    def key(qp=qp, iters=60, tol=3e-5, box=theta, lin="chol",
+            prec="highest"):
+        d, spec = qps._prepare(*qp, iters, tol, box, lin)
+        return qps._graph_key(d, spec, prec)
+
+    base = key()
+    assert key(qp=other) == base
+    per_lane = [qp[0].expand(4, -1, -1).contiguous(), *qp[1:]]
+    variants = [key(iters=35), key(tol=1e-5), key(box=None), key(lin="inv"),
+                key(prec="high"), key(qp=per_lane), key(qp=bench_qps(5)[0]),
+                key(qp=bench_qps(4, F64)[0], box=theta.to(F64))]
+    assert all(v != base for v in variants)
+    assert len(set(variants)) == len(variants)
+    with qpbench.variant("pref0"):
+        assert key() != base
+    assert key() == base
+    monkeypatch.setattr(qps, "_polish", qpbench._no_polish)
+    assert key() != base
+
+
+@pytest.fixture(scope="module")
+def mc_failures():
+    """The scan script and the benchmark's harness it runs studies with;
+    the module search path as it was afterwards."""
+    saved = list(sys.path)
+    sys.path[:0] = [str(ROOT / "experiments"), str(ROOT / "benchmark")]
+    try:
+        import harness
+        import mc_failures
+        yield harness, mc_failures
+    finally:
+        sys.path[:] = saved
+
+
+@pytest.mark.parametrize("study,seed", [(184, 4022430766085515886),
+                                        (606, 4595962382389267950)])
+def test_the_stalled_monte_carlo_studies_end_converged(mc_failures, study,
+                                                       seed, capsys):
+    """head_on_n20's studies 184 and 606 from seed 3913000401, as the
+    benchmark's Monte Carlo driver runs them: each stalls one float32 QP
+    just above the convergence line (where this CPU's float32 reproduces
+    it), and every run ends converged."""
+    harness, scan = mc_failures
+    assert harness.derive_seed(3913000401, "study", study) == seed
+    summary = scan.main(["--device", "cpu", "--studies", "1",
+                         "--first", str(study)])
+    assert summary["runs"] == 300 and summary["failing_runs_in_the_end"] == 0
+    assert summary["lanes_by_stop"]["cap"] == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 + summary["failing_runs_f32"]
+    for line in lines[:-1]:
+        assert '"converged_in_the_end": true' in line
+
+
+def test_the_scan_lists_capped_lanes_with_their_float64_outcomes(
+        mc_failures, capsys):
+    """At a cap of 4 iterations most QPs stop at the cap: each is listed
+    with its float64 re-solves under the same cap, and keeps the fallback
+    (no rescue)."""
+    _, scan = mc_failures
+    summary = scan.main(["--device", "cpu", "--studies", "1", "--runs", "2",
+                         "--qp_iters", "4"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if '"stop"' in line]
+    assert summary["qps"] == 6 and summary["rescue"]
+    assert summary["lanes_by_stop"]["cap"] == len(lines) > 0
+    assert summary["failing_runs_in_the_end"] == summary["failing_runs_f32"]
+    for line in lines:
+        assert line["stop"] == "cap" and line["iterations_f32"] == 4
+        assert not line["converged_in_the_end"]
+        assert line["iterations_in_the_end"] == 4
+        for start in ("f64_cold", "f64_warm"):
+            assert 1 <= line[start]["iterations"] <= 4
