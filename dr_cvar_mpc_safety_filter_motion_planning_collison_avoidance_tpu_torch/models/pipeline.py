@@ -22,6 +22,7 @@ from ..simulation.environment import (Environment, SafeHalfspaces,
                                       compute_distance_to_collision,
                                       compute_safe_halfspaces_for_trajectory)
 from ..simulation.obstacles import ObstacleData, generate_obstacle_scenarios
+from ..utils.timing import annotate, count
 from .mpc_filter import MPCProblem, _filter_core, build_mpc_problem
 from .planner import Planner, straight_line_trajectory
 
@@ -147,14 +148,17 @@ def run_scenario_with_obstacles(statics: PipelineStatics,
     # data, hence no safety constraint.  Pad with INACTIVE halfspaces
     # (unit normal, g~ = -1e4: an obstacle ~10 km away; slack stays 0).
     n_hs = hs_h.shape[2]
+    count("filter.soft_rows", S * 3 * H * n_obs)
+    count("filter.padded_rows", S * 3 * (H - n_hs) * n_obs)
     if n_hs < H:
-        pad_h = torch.zeros((S, 3, H - n_hs, n_obs, 2), dtype=dtype,
-                            device=device)
-        pad_h[..., 0] = 1.0
-        pad_g = torch.full((S, 3, H - n_hs, n_obs), -1e4, dtype=dtype,
-                           device=device)
-        hs_h = torch.cat([hs_h, pad_h], dim=2)
-        hs_g = torch.cat([hs_g, pad_g], dim=2)
+        with annotate("filter.pad"):
+            pad_h = torch.zeros((S, 3, H - n_hs, n_obs, 2), dtype=dtype,
+                                device=device)
+            pad_h[..., 0] = 1.0
+            pad_g = torch.full((S, 3, H - n_hs, n_obs), -1e4, dtype=dtype,
+                               device=device)
+            hs_h = torch.cat([hs_h, pad_h], dim=2)
+            hs_g = torch.cat([hs_g, pad_g], dim=2)
 
     u_min, u_max = (torch.as_tensor(v, dtype=dtype, device=device)
                     for v in INPUT_BOUNDS)

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.risk import cvar_k, kth_largest as _kth_largest_plain
+from ..utils import timing
 from . import _build
 from .halfspace import (Halfspace, cvar_halfspace, dr_cvar_halfspace,
                         mean_halfspace)
@@ -200,13 +201,19 @@ def all_metrics_halfspaces(samples, ego, alpha: float, delta: float,
     Returns MetricHalfspaces (see ops/halfspace.py for the offset
     conventions; h_mean is taken from the origin).  On a CUDA tensor the
     five outputs are views of one buffer.
+
+    With the recorder on, the rows are counted under the path that takes
+    them: `halfspace.rows_warp` / `halfspace.rows_block` (the plan's
+    entry) on a CUDA tensor, `halfspace.rows_plain` on the CPU.
     """
     if samples.device.type == "cpu":
+        timing.count("halfspace.rows_plain", samples.shape[0])
         return all_metrics_halfspaces_plain(samples, ego, alpha, delta,
                                             epsilon, robot_radius,
                                             obstacle_radius)
     plan, N = _plan_rows("all_metrics_halfspaces", samples, ego)
     B = samples.shape[0]
+    timing.count("halfspace.rows_" + plan.entry, B)
     # One allocation, the float2 outputs first (8-byte aligned for any B).
     buf = torch.empty((7 * B,), dtype=torch.float32, device=samples.device)
     out = MetricHalfspaces(buf[:2 * B].view(B, 2), buf[4 * B:5 * B],

@@ -21,7 +21,7 @@ from ..core.dynamics import create_double_integrator_matrices
 from ..ops.cuda_kernels import (MAX_N_SAMPLES, all_metrics_halfspaces,
                                 all_metrics_halfspaces_plain)
 from ..ops.halfspace import Halfspace
-from ..utils.timing import annotate
+from ..utils.timing import annotate, count
 
 
 class SafeHalfspaces(NamedTuple):
@@ -112,9 +112,11 @@ def compute_safe_halfspaces_for_trajectory(env: Environment,
     [S, n_steps, n_obs].
     """
     rows, ego, shape = halfspace_rows(env, obstacle_samples, x_ref)
-    solve = (all_metrics_halfspaces
-             if use_halfspace_kernel(rows.dtype, rows.shape[1])
-             else all_metrics_halfspaces_plain)
+    if use_halfspace_kernel(rows.dtype, rows.shape[1]):
+        solve = all_metrics_halfspaces     # counts its rows by path
+    else:
+        solve = all_metrics_halfspaces_plain
+        count("halfspace.rows_plain", rows.shape[0])
     with annotate("halfspace.solve"):
         out = solve(rows, ego, env.alpha, env.delta, env.epsilon,
                     env.robot_radius, env.obstacle_radius)

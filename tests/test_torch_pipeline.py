@@ -1,10 +1,10 @@
 """PyTorch port, the whole slice in float64 against the JAX pipeline.
 
-The four custom scenarios and the paper head_on (sim_time 3 s < the
-6 s horizon: the inactive-halfspace padding path), on the reference's
-seed-42 obstacle streams: controls to 1e-6, halfspaces and distances to
-1e-9, the same IPM iteration counts, and the reference-parity curve
-features of tests/test_reference_parity.py.
+The four custom scenarios and the paper head_on and multi_obstacle
+(sim_time 3 s and 5 s < the 6 s horizon: the inactive-halfspace padding
+path), on the reference's seed-42 obstacle streams: controls to 1e-6,
+halfspaces and distances to 1e-9, the same IPM iteration counts, and the
+reference-parity curve features of tests/test_reference_parity.py.
 """
 
 import jax.numpy as jnp

@@ -16,11 +16,12 @@ from __future__ import annotations
 import numpy as np
 
 # (preset, scenario) pairs of the port's end-to-end checks: the four
-# custom scenarios and the paper head_on, whose sim_time (3 s) is
-# shorter than the horizon (6 s), so it takes the padding path.
+# custom scenarios, and the paper head_on and multi_obstacle, whose
+# sim_times (3 s, 5 s) are shorter than the horizon (6 s), so they take
+# the padding path.
 E2E_CASES = (("custom", "head_on"), ("custom", "overtaking"),
              ("custom", "intersection"), ("custom", "multi_obstacle"),
-             ("paper", "head_on"))
+             ("paper", "head_on"), ("paper", "multi_obstacle"))
 
 
 def reference_rng_obstacles(scenario, sim_time, dt, n_samples, seed=42):
