@@ -30,7 +30,12 @@ is non-zero):
      paths; then the kernel benchmark's attribution lines (launch counts
      from 0);
   4. seeded end to end: the reference's seed-42 streams (N = 20);
-  5. the batch run, with its launch counts, checks and wall time;
+  5. the batch run, with its launch counts, checks and wall time; then
+     the IPM pass's three fused kernels on its 768 QPs (n = 60, 60 box
+     rows of T, 90 soft rows): one fused pass against the plain pass,
+     each kernel as a CUDA graph of 50 launches with its bound and the
+     plain pass's device time for the same work, and a pass's graph
+     nodes and device time, fused and plain;
   6. the single-scenario filter API, launch counts from 0:
      `filter_trajectory` per metric on the seeded multi_obstacle
      scenario against the oracle and the pipeline, both fallbacks, the
@@ -69,7 +74,7 @@ is non-zero):
      card.
 The line before the last is the kernels' JSON record (for every kernel
 but `minimal_planes` `ms` is the device time as a CUDA graph of launches
-and `wrapper_ms` the time launch by launch; the solve's top-level numbers
+and, for kernels 1-7, `wrapper_ms` the time launch by launch; the solve's top-level numbers
 are k = 1's, `k65` holds k = 65's and `k60` k = 60's; kernels 1-3 also
 list the launches of phases 9 and 10's paths); the last line is
 {"ok": true, "device": {...}}.
@@ -260,7 +265,9 @@ def halfspace_entry(pt, err, k_ms, p_ms, tensors, flops_per_sample,
 
 
 def rel_err(a, b) -> float:
-    return float((a - b).norm() / b.norm())
+    """|a - b| / |b| in norm; 0 where a equals b (a zero solution too)."""
+    diff = (a - b).norm()
+    return 0.0 if float(diff) == 0.0 else float(diff / b.norm())
 
 
 def gate_linalg(out, plain, residual, label) -> float:
@@ -1644,6 +1651,183 @@ def batch_qps(pt, torch, res, scenario, dtype, dev):
     raise GateFailed("batch_qps: the filter never called solve_mpc_qp")
 
 
+FUSED = ("ipm_residuals", "ipm_predictor", "ipm_step")
+# The plain pass's spans whose kernels (less kernels 2 and 3) each fused
+# kernel takes over: A the residuals (and the predictor's right-hand
+# side, which the plain pass computes at the start of its first Newton
+# span), B the rest of the first Newton span, C the second and the step.
+FUSED_SPANS = {"ipm_residuals": (0,), "ipm_predictor": (2,),
+               "ipm_step": (3, 4)}
+
+
+def fused_work(B: int, n: int, hp: int, m2: int) -> dict:
+    """(float32 operations, bytes) of each fused kernel on B stepping
+    lanes: every input read once, every output written once (kernel A's
+    best-iterate copy left out: the timed launches find no better
+    merit)."""
+    m1, nt = 2 * n + 2 * hp, hp + m2
+    x = n + 2 * m1 + 5 * m2             # the iterate's eight vectors
+    rows = hp * n + B * m2 * n          # T and each lane's A
+    a_reads = rows + n * n + B * (x + n + m1 + 3 * m2 + 1)
+    a_writes = B * (n * n + n + 2 * m1 + 7 * m2 + n)
+    a_ops = B * (n * (n + 1) * nt + 2 * nt * n * 3 + 2 * n * n
+                 + 30 * (m1 + m2))
+    b_reads = rows + B * (n + 2 * m1 + 4 * m2 + 2 * m1 + 8 * m2 + n)
+    b_writes = B * (m1 + 3 * m2 + n)
+    b_ops = B * (2 * nt * n * 2 + 40 * (m1 + m2))
+    c_reads = rows + B * (n + x + 3 * m1 + 8 * m2)
+    c_ops = B * (2 * nt * n + 30 * (m1 + m2))
+    return {"ipm_residuals": (a_ops, 4 * (a_reads + a_writes)),
+            "ipm_predictor": (b_ops, 4 * (b_reads + b_writes)),
+            "ipm_step": (c_ops, 4 * (c_reads + B * x))}
+
+
+def plain_span_ms(pt, torch, d, spec, st) -> list:
+    """Device ms of the plain pass's kernels under each of its five spans
+    (residuals, factor, newton, newton, step), kernels 2 and 3 left out:
+    one op-by-op pass under torch.profiler with the recorder on.  None
+    where the profiler saw no device time."""
+    qps, timing = pt.ops.qp_ipm_structured, pt.utils.timing
+    skip = ("cholesky_kernel", "cho_solve")
+
+    def device_us(e):
+        own = sum(k.duration for k in e.kernels
+                  if not any(s in k.name for s in skip))
+        return own + sum(device_us(c) for c in e.cpu_children)
+
+    qps._one_pass(d, spec, st)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    was = timing.record(True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            qps._one_pass(d, spec, st)
+            torch.cuda.synchronize()
+    finally:
+        timing.record(was)
+    spans = sorted((e for e in prof.events() if e.name in (
+        "ipm.residuals", "ipm.factor", "ipm.newton", "ipm.step")),
+        key=lambda e: e.time_range.start)
+    ms = [device_us(e) / 1e3 for e in spans]
+    return ms if len(ms) == 5 and sum(ms) > 0 else None
+
+
+def replay_pass(torch, graphs, d, st):
+    """(device ms by CUDA events, device operations the profiler sees) of
+    one replay of a key's pass graph from the state `st`."""
+    graphs.load(d, st)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graphs.pass_graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    graphs.load(d, st)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graphs.pass_graph.replay()
+        torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, ops
+
+
+def phase_fused_pass(pt, torch, dev, res, scenario) -> dict:
+    """5b. The fused pass on the batch run's 768 QPs: one pass against the
+    plain pass from the state after a first plain pass (flags equal,
+    iterate within 1e-3 relative); each kernel as a CUDA graph of 50
+    launches (the lanes' stall and iteration counts set far below their
+    limits, so every timed launch does a stepping lane's work), its
+    bound, and the plain pass's device time for its share of the pass;
+    a pass's graph nodes and device time, fused and plain.  Returns the
+    three kernels' entries of the record."""
+    qps, ci, kb = (pt.ops.qp_ipm_structured, pt.ops.cuda_ipm,
+                   pt.experiments.kbench)
+    args, kwargs = batch_qps(pt, torch, res, scenario, torch.float32, dev)
+    d, spec = qps._prepare(*args, kwargs["max_iters"], kwargs["tol"],
+                           kwargs["box_theta"], "chol")
+    gate(qps._fused(d, "highest"), "fused pass: batch256's QPs not taken")
+    st = qps._one_pass(d, spec, qps._start(d, spec, None))
+    gate(bool(st.active.all()), "fused pass: a lane stopped at pass 1")
+
+    # One pass each way from st.
+    plain = qps._one_pass(d, spec, st)
+    fused = qps._State.of(qps._dense(st.flat()))
+    dd = qps._Data(*qps._dense(d))
+    qps._fused_pass(dd, spec, fused)
+    torch.cuda.synchronize()
+    for name in ("done", "stall", "iters", "active"):
+        gate(torch.equal(getattr(fused, name), getattr(plain, name)),
+             f"fused pass: {name} differs from the plain pass")
+    worst = max(rel_err(a, b) for a, b in zip(fused.x, plain.x))
+    gate(worst < 1e-3, f"fused pass: iterate {worst:.3e} from the plain pass")
+
+    # The kernels one by one, on copies whose lanes never stop: no merit
+    # is better than -inf nor below a tolerance of -inf, and the stall and
+    # iteration counts start far below their limits.
+    ts = qps._State.of(qps._dense(st.flat()))
+    ts.best_merit.fill_(float("-inf"))
+    ts.stall.fill_(-10 ** 6)
+    ts.iters.fill_(-10 ** 6)
+    lanes = qps._lanes(dd, ts)
+    never = float("-inf")
+    S, rhs, work = ci.ipm_residuals(lanes, spec.reg, never, spec.max_iters)
+    du = pt.ops.cuda_linalg.batched_cho_solve(
+        pt.ops.cuda_linalg.batched_cholesky(S), rhs)
+    rhs_c = rhs.clone()        # kernel B's output, written at each launch
+    launch = {
+        "ipm_residuals": lambda: ci.ipm_residuals(
+            lanes, spec.reg, never, spec.max_iters),
+        "ipm_predictor": lambda: ci.ipm_predictor(lanes, work, du, rhs_c),
+        "ipm_step": lambda: ci.ipm_step(lanes, work, du)}
+    B, n = d.q_u.shape
+    hp, m2 = d.T.shape[0], d.b.shape[1]
+    work_of = fused_work(B, n, hp, m2)
+    spans = plain_span_ms(pt, torch, d, spec, st)
+    entries = {}
+    for name in FUSED:
+        ms = (kb.graph_ms(launch[name]) + kb.graph_ms(launch[name])) / 2
+        flops, nbytes = work_of[name]
+        by_bytes, by_ops = nbytes / 3.35e12 * 1e3, flops / 67e12 * 1e3
+        bound = max(by_bytes, by_ops)
+        plain_ms = (None if spans is None
+                    else sum(spans[i] for i in FUSED_SPANS[name]))
+        entries[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if by_bytes >= by_ops else "float32 operations",
+            library_ms=None, max_abs_err=worst)
+        print(f"[fused] {name} [{B} lanes, n {n}, hp {hp}, m2 {m2}]: "
+              f"{ms:.4f} ms as a CUDA graph of launches; bound "
+              f"{bound:.4f} ms by {entries[name]['bound_by']} "
+              f"({bound / ms:.1%} of it reached); the plain pass's share "
+              + ("not measured" if plain_ms is None
+                 else f"{plain_ms:.4f} ms"))
+
+    # A pass from st through each key's graphs: nodes and device time.
+    qps._ipm_graphs(d, spec, None, "highest")
+    keys = {"fused": qps._graph_key(d, spec, "highest")}
+    real = qps.use_fused_pass
+    qps.use_fused_pass = lambda *a: False
+    try:
+        qps._ipm_graphs(d, spec, None, "highest")
+        keys["plain"] = qps._graph_key(d, spec, "highest")
+    finally:
+        qps.use_fused_pass = real
+    passes = {k: replay_pass(torch, qps._GRAPHS[key], d, st)
+              for k, key in keys.items()}
+    print(f"[fused] one pass of 768 lanes from a CUDA graph: fused "
+          f"{passes['fused'][0]:.4f} ms, {passes['fused'][1]} device "
+          f"operations; plain {passes['plain'][0]:.4f} ms, "
+          f"{passes['plain'][1]} device operations (0: the profiler saw "
+          f"none); one fused pass within {worst:.2e} of the plain pass, "
+          f"flags equal")
+    return entries
+
+
 def mpc_merit64(qp, sol):
     """The structured IPM's scaled KKT merit of `sol`, evaluated in
     float64 on the host with the true slacks (h1 - G u, b - A u + s, s)
@@ -2020,6 +2204,8 @@ def main() -> int:
     params, scenario, statics = batch_setup(pt, torch, dev)
     warm = run_batch(pt, torch, dev, params, scenario, statics)
     reset_launches(pt)
+    fused_before = {name: getattr(pt.ops.cuda_ipm, name).launches
+                    for name in FUSED}
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2031,7 +2217,11 @@ def main() -> int:
     host_ms = (time.perf_counter() - t0) * 1e3
     device_ms = start.elapsed_time(end)
     launches = read_launches(pt)
+    launches.update({name: getattr(pt.ops.cuda_ipm, name).launches
+                     - fused_before[name] for name in FUSED})
     gate(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    gate(len({launches[name] for name in FUSED}) == 1,
+         f"the fused kernels launched unequally: {launches}")
     S = BATCH["scenarios"]
     gate(res.filtered_u.shape == (S, 3, params.horizon, 2), "batch shape")
     for name in ("filtered_u", "filtered_x", "objective", "distances",
@@ -2077,6 +2267,7 @@ def main() -> int:
           f"agree, objectives within {obj_rel:.2e} relative")
     print(f"[batch] launches {launches}")
     launches.update(kbench_launches)
+    record.update(phase_fused_pass(pt, torch, dev, res, scenario))
 
     # 6. The single-scenario filter API; 7. what the kernels do not take.
     phase_filter(pt, torch, dev, held, card)
@@ -2120,6 +2311,8 @@ def main() -> int:
         ("drcvar_variant", "halfspace_variants.cu", "experiments/kbench.py:176"),
         ("minimal_planes", "halfspace_variants.cu", "experiments/kbench.py:272"),
         ("select_rounds", "halfspace_variants.cu", "experiments/kbench.py:388"),
+        *((name, "ipm_pass_kernels.cu", "none: the JAX package leaves the "
+           "IPM pass to XLA's fusion") for name in FUSED),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source + src,

@@ -20,6 +20,12 @@ Hopper (`ops/csrc/`), built with nvcc on first use:
     `select_rounds` (the kernel benchmark's attribution variants, run by
     `experiments/kbench.py`).
 
+Beside them, three kernels replace no Pallas kernel: the structured
+IPM's pass (`ops/cuda_ipm.ipm_residuals`, `ipm_predictor`, `ipm_step`),
+which the JAX package leaves to XLA's fusion; their plain version is the
+pass op by op, and their wrappers take CUDA tensors only
+(`ops/qp_ipm_structured.use_fused_pass` chooses).
+
 On a CPU tensor each wrapper runs its plain PyTorch version instead; on
 a CUDA tensor it launches its kernel or raises.  What the kernels do not
 take (float64, more than 49,152 samples a row, systems wider than 64)

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "drcvar_batched_cholesky": [_P, _P, _I, _I, _P],
     "drcvar_batched_cho_solve": [_P, _P, _P, _I, _I, _I, _P],
     "drcvar_cho_solve_warp_max_k": [],
+    "drcvar_ipm_residuals": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_I, _P],
+    "drcvar_ipm_predictor": [_P] * 4 + [_I] * 5 + [_P],
+    "drcvar_ipm_step": [_P] * 3 + [_I] * 4 + [_P],
+    "drcvar_ipm_work_floats": [_I] * 3,
+    "drcvar_ipm_caps": [_I],
 }
 
 

@@ -30,13 +30,20 @@ those of a solve on its own.  The loop runs until every lane has
 stopped; its exit test reads one boolean back to the host per
 iteration.
 
-On a CUDA tensor a pass is hundreds of small kernels, and launching them
-one by one costs the host far more than the device spends on them.  So
-the pass and the work after the loop are captured once per key as CUDA
-graphs (`_Graphs`, at most `GRAPH_CACHE_SIZE` keys, least recent
-dropped) and replayed: the same kernels in the same order, kernels 2 and
-3 among them, on static buffers that hold the call's data and the loop's
-state.  The CPU runs the same functions op by op.
+On a CUDA tensor the pass and the work after the loop are captured once
+per key as CUDA graphs (`_Graphs`, at most `GRAPH_CACHE_SIZE` keys,
+least recent dropped) and replayed: the same kernels in the same order,
+kernels 2 and 3 among them, on static buffers that hold the call's data
+and the loop's state.  The CPU runs the same functions op by op.
+
+Fused pass: op by op a pass is ~470 small kernels, and even from a graph
+the card spends ~1 ms a pass in the gaps between them.  Where
+`use_fused_pass` takes a solve (float32 on a CUDA tensor, the box layout,
+shared P_uu, n <= 64, "chol", "highest"), the pass is six launches
+instead (`_fused_pass`: three hand kernels of `cuda_ipm` around kernel 2
+and kernel 3 twice) that update the state in place; `_one_pass` stays
+its plain version, and every other solve's.  The graph path and the
+op-by-op path take the same pass for the same key.
 
 Rescue: a float32 lane that stops unconverged before `max_iters` (the
 stall rule just above float32's merit floor, or a breakdown) is solved
@@ -50,7 +57,8 @@ are spans (`ipm.pass`; `ipm.residuals`, `ipm.factor`, `ipm.newton` twice,
 active: the readback then reads that number in place of the boolean),
 `ipm.polish_kept` (lanes whose polished iterate is kept, one more
 readback a solve), `ipm.graph_passes` (passes replayed from a graph),
-`ipm.rescued` and `ipm.rescued_converged`.  On the graph path the pass's
+`ipm.fused_passes` (passes run on the fused kernels), `ipm.rescued` and
+`ipm.rescued_converged`.  On the graph path the pass's
 parts and the polish's inner spans fire only while a graph is captured;
 `ipm.pass` wraps a replay, `ipm.polish` the post-loop replay and
 `ipm.finalize` the copy of its results.  Off, the spans and counters do
@@ -67,6 +75,8 @@ import torch
 
 from ..utils import timing
 from ..utils.timing import annotate
+from . import cuda_ipm
+from .cuda_ipm import ipm_predictor, ipm_residuals, ipm_step
 from .cuda_linalg import (MAX_RHS, N_MAX, batched_cho_solve,
                           batched_cho_solve_plain, batched_cholesky,
                           batched_cholesky_plain)
@@ -91,6 +101,20 @@ def use_linalg_kernels(dtype, n: int, k: int = 1) -> bool:
     N_MAX, k <= MAX_RHS).  The choice never looks at the device or at
     whether a launch succeeded."""
     return dtype == torch.float32 and n <= N_MAX and k <= MAX_RHS
+
+
+def use_fused_pass(device_type: str, dtype, n: int, m2: int, hp,
+                   shared: bool, linsolve: str, ipm_precision: str) -> bool:
+    """Whether a solve's passes run on the fused pass kernels
+    (`_fused_pass`): float32 on a CUDA tensor, the box layout (`hp`, the
+    rows of box_theta, not None), P_uu shared and A per lane (`shared`),
+    n <= N_MAX, hp <= cuda_ipm.HP_MAX and 1 <= m2 <= cuda_ipm.M2_MAX soft
+    rows, linsolve "chol" and ipm_precision "highest".  Decided from
+    these alone, never from whether a launch succeeded."""
+    return (device_type == "cuda" and dtype == torch.float32
+            and hp is not None and shared and 1 <= n <= N_MAX
+            and hp <= cuda_ipm.HP_MAX and 1 <= m2 <= cuda_ipm.M2_MAX
+            and linsolve == "chol" and ipm_precision == "highest")
 
 
 LINSOLVES = ("chol", "inv")
@@ -308,6 +332,15 @@ def _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,
             _Spec(m1 + 2 * m2, reg, float(tol), int(max_iters)))
 
 
+def _fused(d: _Data, ipm_precision: str) -> bool:
+    """`use_fused_pass` for a prepared solve."""
+    return use_fused_pass(
+        d.q_u.device.type, d.q_u.dtype, d.q_u.shape[1], d.b.shape[-1],
+        None if d.T is None else d.T.shape[0],
+        d.P_uu.dim() == 2 and d.A.dim() == 3,
+        "chol" if d.eye_b is None else "inv", ipm_precision)
+
+
 def _ops(d: _Data):
     """G_u's products: the box structure where box_theta was given."""
     return _BoxOps(d.T, d.q_u.shape[1]) if d.T is not None else _DenseOps(d.G_u)
@@ -464,6 +497,40 @@ def _one_pass(d: _Data, spec: _Spec, st: _State) -> _State:
     return _State(x, best, best_merit, done, stall, iters, active)
 
 
+def _lanes(d: _Data, st: _State) -> cuda_ipm.Lanes:
+    """The fused kernels' pointer table of a solve's data and state."""
+    return cuda_ipm.lanes((d.P_uu, d.T, d.q_u, d.h1, d.A, d.b, d.p_ss,
+                           d.q_s, d.q_scale, *st.x, *st.best, st.best_merit,
+                           st.done, st.stall, st.iters, st.active))
+
+
+def _fused_pass(d: _Data, spec: _Spec, st: _State) -> _State:
+    """One pass of the loop on the fused kernels, the same pass as
+    `_one_pass` (to the order of sums): kernel A (merit, bookkeeping, D,
+    S, predictor right-hand side), `_factor`, `_solve`, kernel B
+    (predictor step, corrector right-hand side), `_solve`, kernel C
+    (corrector step).  Updates `st`'s buffers in place (they must be
+    distinct and contiguous, as `d`'s) and returns `st`."""
+    lanes = _lanes(d, st)
+    with annotate("ipm.residuals"):
+        S, rhs, work = ipm_residuals(lanes, spec.reg, spec.tol,
+                                     spec.max_iters)
+    with annotate("ipm.factor"):
+        L = _factor(S)
+    with annotate("ipm.newton"):
+        ipm_predictor(lanes, work, _solve(L, rhs), rhs)
+    with annotate("ipm.newton"):
+        du = _solve(L, rhs)
+    with annotate("ipm.step"):
+        ipm_step(lanes, work, du)
+    return st
+
+
+def _dense(tensors) -> list:
+    """Distinct contiguous copies: the fused pass's buffers."""
+    return [None if t is None else t.contiguous().clone() for t in tensors]
+
+
 def _post(d: _Data, spec: _Spec, st: _State):
     """After the loop: the best iterate, its polish where that lowers the
     merit, and the reported solution.  Returns (MPCQPSolution, the lanes
@@ -494,12 +561,21 @@ def _post(d: _Data, spec: _Spec, st: _State):
 
 
 def _ipm_eager(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
-    """The solve op by op: the CPU's path, and the rescue's."""
+    """The solve without graphs, pass by pass: the CPU's path and the
+    rescue's (op by op), and on the card the graph path's reference (the
+    same passes, fused where `use_fused_pass` takes the solve)."""
     st = _start(d, spec, warm)
+    fused = _fused(d, ipm_precision)
+    if fused:
+        d, st = _Data(*_dense(d)), _State.of(_dense(st.flat()))
     with _loop_precision(ipm_precision, d.q_u.dtype, d.q_u.device):
         while _still_active(st.active):
             with annotate("ipm.pass"):
-                st = _one_pass(d, spec, st)
+                if fused:
+                    _fused_pass(d, spec, st)
+                    timing.count("ipm.fused_passes")
+                else:
+                    st = _one_pass(d, spec, st)
     sol, use_p = _post(d, spec, st)
     if timing.RECORDING:
         timing.count("ipm.polish_kept", int(use_p.sum()))
@@ -514,19 +590,21 @@ _CAPTURED_NAMES = ("_factor", "_solve", "_select_rows", "_polish",
                    "batched_cho_solve", "batched_cholesky_plain",
                    "batched_cho_solve_plain")
 GRAPH_CACHE_SIZE = 8     # keys whose graphs are kept, least recent dropped
-_KERNELS = (batched_cholesky, batched_cho_solve)   # they own `.launches`
+_KERNELS = (batched_cholesky, batched_cho_solve, ipm_residuals,
+            ipm_predictor, ipm_step)               # they own `.launches`
 
 
 def _graph_key(d: _Data, spec: _Spec, ipm_precision: str) -> tuple:
     """Everything that changes the captured work: every tensor's device,
     dtype, shape and strides (so B, n, m1, m2, shared or per-lane P_uu
     and G_u, box or dense, "inv"), the numbers of the spec, the loop's
-    precision and the process's float32 matmul settings, and the
-    module-level names the work calls."""
+    precision, whether the pass is the fused one, the process's float32
+    matmul settings, and the module-level names the work calls."""
     names = globals()
     return (tuple(None if t is None else
                   (t.device, t.dtype, tuple(t.shape), t.stride()) for t in d),
-            spec, ipm_precision, torch.get_float32_matmul_precision(),
+            spec, ipm_precision, _fused(d, ipm_precision),
+            torch.get_float32_matmul_precision(),
             torch.backends.cuda.matmul.allow_tf32,
             tuple(names[name] for name in _CAPTURED_NAMES))
 
@@ -554,15 +632,19 @@ class _Graphs:
     only static buffers: the call's data is copied into `d` and its first
     state into `state` before the loop; the pass graph writes the next
     state back into `state`; the post graph's results are cloned out by
-    the caller.  The hand kernels' `.launches` count each replay's
-    launches; the warm-up and the capture are not counted."""
+    the caller.  The fused pass (`fused`) updates `state` in place, on
+    contiguous buffers.  The hand kernels' `.launches` count each
+    replay's launches; the warm-up and the capture are not counted."""
 
     _side: dict = {}       # device -> the stream the graphs are captured on
 
-    def __init__(self, d: _Data, st0: _State):
-        self.d = _Data(*(None if t is None else torch.empty_like(t)
-                         for t in d))
-        self.state = _State.of([torch.empty_like(t) for t in st0.flat()])
+    def __init__(self, d: _Data, st0: _State, fused: bool):
+        self.fused = fused
+        like = _dense if fused else (
+            lambda ts: [None if t is None else torch.empty_like(t)
+                        for t in ts])
+        self.d = _Data(*like(d))
+        self.state = _State.of(like(st0.flat()))
 
     def load(self, d: _Data, st0: _State):
         for dst, src in zip(self.d, d):
@@ -572,6 +654,9 @@ class _Graphs:
             dst.copy_(src)
 
     def _step(self, spec: _Spec):
+        if self.fused:
+            _fused_pass(self.d, spec, self.state)
+            return
         new = _one_pass(self.d, spec, self.state)
         for dst, src in zip(self.state.flat(), new.flat()):
             dst.copy_(src)
@@ -590,7 +675,11 @@ class _Graphs:
         try:
             with torch.cuda.stream(side):
                 with _loop_precision(ipm_precision, self.d.q_u.dtype, device):
-                    _one_pass(self.d, spec, self.state)
+                    if self.fused:   # on copies: it writes in place
+                        _fused_pass(self.d, spec,
+                                    _State.of(_dense(self.state.flat())))
+                    else:
+                        _one_pass(self.d, spec, self.state)
                     mid = [fn.launches for fn in _KERNELS]
                     self.pass_graph, _ = _capture(lambda: self._step(spec))
                 after_pass = [fn.launches for fn in _KERNELS]
@@ -609,6 +698,8 @@ class _Graphs:
         for fn, n in zip(_KERNELS, self.pass_launches):
             fn.launches += n
         timing.count("ipm.graph_passes")
+        if self.fused:
+            timing.count("ipm.fused_passes")
 
     def replay_post(self):
         self.post_graph.replay()
@@ -629,7 +720,7 @@ def _ipm_graphs(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
     st0 = _start(d, spec, warm)
     graphs = _GRAPHS.pop(key, None)
     if graphs is None:
-        graphs = _Graphs(d, st0)
+        graphs = _Graphs(d, st0, _fused(d, ipm_precision))
         graphs.load(d, st0)
         graphs.capture(spec, ipm_precision)
     else:
@@ -737,7 +828,8 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     (~1e-4 relative) to linear-solve accuracy (~1e-6).
 
     On a CUDA tensor the loop's passes and the work after it replay from
-    CUDA graphs (`_ipm_graphs`); on the CPU they run op by op.  Either
+    CUDA graphs (`_ipm_graphs`), each pass on the fused kernels where
+    `use_fused_pass` takes the solve; on the CPU they run op by op.  Either
     way a float32 lane that stops unconverged before `max_iters` is
     solved again in float64 (`_rescue`).
     """
