@@ -60,22 +60,15 @@ is non-zero):
      `solve_qp_batched` on 768 random QPs (n = 60, m = 240) against CPU
      float64; `[planner]` `plan_trajectory` with bounds at H = 30 against
      the scipy oracle; both launch kernels 2 and 3;
- 10. the last modules, counts from 0 before each drive: `[inv]` the batch
-     run's 768 QPs through `solve_mpc_qp(linsolve=...)`, "inv" against
-     "chol" (float64 on the card to the JAX test's bounds; float32 by
-     converged share and float64 merit, kernel 3 at k = 60 once a pass),
-     and kernel 3 alone at k = 60 against the identity (timed, `k60` in
-     the record); `[qpbench]` chol, inv, bt, diag and pnone at batch 2048;
-     `[prec]` the three `ipm_precision` settings, "highest" bit-equal to
-     the default call, TF32 on only in the loop and off after it;
-     `[native]` the C++ host solver built with g++ on 8 of the batch
-     run's QPs against the card's float64 IPM; `[gallery]` custom head_on
-     through `experiments.make_gallery` and `[demo]` both demos on the
-     card.
+ 10. the last modules, counts from 0 before each drive: `[qpbench]` chol,
+     bt, diag and pnone at batch 2048; `[native]` the C++ host solver
+     built with g++ on 8 of the batch run's QPs against the card's
+     float64 IPM; `[gallery]` custom head_on through
+     `experiments.make_gallery` and `[demo]` both demos on the card.
 The line before the last is the kernels' JSON record (for every kernel
 but `minimal_planes` `ms` is the device time as a CUDA graph of launches
-and, for kernels 1-7, `wrapper_ms` the time launch by launch; the solve's top-level numbers
-are k = 1's, `k65` holds k = 65's and `k60` k = 60's; kernels 1-3 also
+and, for kernels 1-7, `wrapper_ms` the time launch by launch; the solve's
+top-level numbers are k = 1's and `k65` holds k = 65's; kernels 1-3 also
 list the launches of phases 9 and 10's paths); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -117,10 +110,8 @@ PLAN = dict(x0=(-4.0, 0.0, 0.0, 0.0), goal=(4.0, 0.0, 0.0, 0.0),
             u_lim=0.3, x_lim=(10.0, 10.0, 5.0, 5.0), obj_rtol=1e-5,
             viol=1e-5)
 # Phase 10: the last modules on the batch run's QPs and the bench shape.
-INV = dict(u_tol64=3e-4, obj_tol64=1e-5, tol=3e-5)
-QPBENCH = dict(specs=("chol:2048", "inv:2048", "bt:2048", "diag:2048",
-                      "pnone:2048"), repeats=3, k=4)
-PREC = dict(batch=2048, repeats=3, k=4)
+QPBENCH = dict(specs=("chol:2048", "bt:2048", "diag:2048", "pnone:2048"),
+               repeats=3, k=4)
 NATIVE = dict(qps=8, max_iters=200, obj_rtol=1e-6, viol=1e-7)
 TIMING_CLI = ["--mode", "timing_analysis", "--sample_sizes", "10,1000",
               "--timing_runs", "5", "--device", "cuda"]
@@ -1070,12 +1061,15 @@ def phase_filter(pt, torch, dev, held, card):
 def count_linalg_systems(pt):
     """Counts, while the block runs, the solver's factorisations and
     solves by (function, n, right-hand sides): which went to the kernel
-    wrappers and which to the plain versions."""
+    wrappers and which to the plain versions.  The solver's cached graphs
+    are dropped on the way in and out: they call the names bound when
+    they were captured."""
     qp = pt.ops.qp_ipm_structured
     names = ("batched_cholesky", "batched_cholesky_plain",
              "batched_cho_solve", "batched_cho_solve_plain")
     real = {name: getattr(qp, name) for name in names}
     seen = collections.Counter()
+    qp._GRAPHS.clear()
 
     def spy(name):
         def call(*args):
@@ -1092,6 +1086,7 @@ def count_linalg_systems(pt):
     finally:
         for name in names:
             setattr(qp, name, real[name])
+        qp._GRAPHS.clear()
 
 
 def phase_beyond_kernels(pt, torch, dev, streams, card):
@@ -1695,14 +1690,15 @@ def plain_span_ms(pt, torch, d, spec, st) -> list:
                   if not any(s in k.name for s in skip))
         return own + sum(device_us(c) for c in e.cpu_children)
 
-    qps._one_pass(d, spec, st)
+    warm, timed = st.dense(), st.dense()     # a pass writes its state
+    qps._one_pass(d, spec, warm)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     was = timing.record(True)
     try:
         with torch.profiler.profile(activities=acts) as prof:
-            qps._one_pass(d, spec, st)
+            qps._one_pass(d, spec, timed)
             torch.cuda.synchronize()
     finally:
         timing.record(was)
@@ -1749,16 +1745,16 @@ def phase_fused_pass(pt, torch, dev, res, scenario) -> dict:
                    pt.experiments.kbench)
     args, kwargs = batch_qps(pt, torch, res, scenario, torch.float32, dev)
     d, spec = qps._prepare(*args, kwargs["max_iters"], kwargs["tol"],
-                           kwargs["box_theta"], "chol")
-    gate(qps._fused(d, "highest"), "fused pass: batch256's QPs not taken")
-    st = qps._one_pass(d, spec, qps._start(d, spec, None))
+                           kwargs["box_theta"])
+    gate(qps._pass_of(d) is qps._fused_pass,
+         "fused pass: batch256's QPs not taken")
+    st = qps._one_pass(d, spec, qps._start(d, spec, None).dense())
     gate(bool(st.active.all()), "fused pass: a lane stopped at pass 1")
 
-    # One pass each way from st.
-    plain = qps._one_pass(d, spec, st)
-    fused = qps._State.of(qps._dense(st.flat()))
+    # One pass each way from copies of st.
+    plain = qps._one_pass(d, spec, st.dense())
     dd = qps._Data(*qps._dense(d))
-    qps._fused_pass(dd, spec, fused)
+    fused = qps._fused_pass(dd, spec, st.dense())
     torch.cuda.synchronize()
     for name in ("done", "stall", "iters", "active"):
         gate(torch.equal(getattr(fused, name), getattr(plain, name)),
@@ -1769,7 +1765,7 @@ def phase_fused_pass(pt, torch, dev, res, scenario) -> dict:
     # The kernels one by one, on copies whose lanes never stop: no merit
     # is better than -inf nor below a tolerance of -inf, and the stall and
     # iteration counts start far below their limits.
-    ts = qps._State.of(qps._dense(st.flat()))
+    ts = st.dense()
     ts.best_merit.fill_(float("-inf"))
     ts.stall.fill_(-10 ** 6)
     ts.iters.fill_(-10 ** 6)
@@ -1808,15 +1804,15 @@ def phase_fused_pass(pt, torch, dev, res, scenario) -> dict:
                  else f"{plain_ms:.4f} ms"))
 
     # A pass from st through each key's graphs: nodes and device time.
-    qps._ipm_graphs(d, spec, None, "highest")
-    keys = {"fused": qps._graph_key(d, spec, "highest")}
+    qps._ipm_graphs(d, spec, None)
     real = qps.use_fused_pass
     qps.use_fused_pass = lambda *a: False
     try:
-        qps._ipm_graphs(d, spec, None, "highest")
-        keys["plain"] = qps._graph_key(d, spec, "highest")
+        qps._ipm_graphs(d, spec, None)
     finally:
         qps.use_fused_pass = real
+    keys = {name: qps._graph_key(d, spec, step) for name, step in
+            (("fused", qps._fused_pass), ("plain", qps._one_pass))}
     passes = {k: replay_pass(torch, qps._GRAPHS[key], d, st)
               for k, key in keys.items()}
     print(f"[fused] one pass of 768 lanes from a CUDA graph: fused "
@@ -1828,163 +1824,12 @@ def phase_fused_pass(pt, torch, dev, res, scenario) -> dict:
     return entries
 
 
-def mpc_merit64(qp, sol):
-    """The structured IPM's scaled KKT merit of `sol`, evaluated in
-    float64 on the host with the true slacks (h1 - G u, b - A u + s, s)
-    in place of the solver's slack iterates (which the polish sets to
-    1e-8 on active rows)."""
-    import torch
-
-    f64 = torch.float64
-    P, q_u, G, h1, A, b = (t.detach().cpu().to(f64) for t in qp[:6])
-    B, m2 = b.shape
-    p_ss, q_s = (torch.as_tensor(v, dtype=f64).expand(B, m2)
-                 for v in qp[6:8])
-    u, s = sol.u.cpu().to(f64), sol.s.cpu().to(f64)
-    l1, l2, l3 = (t.cpu().to(f64) for t in sol.mults)
-    Au = (A @ u[..., None])[..., 0]
-    w = (h1 - u @ G.T, b - Au + s, s)
-    relu = torch.relu
-    mu = sum((lam * relu(wi)).sum(-1) for lam, wi in zip((l1, l2, l3), w))
-    mu = mu / (h1.shape[1] + 2 * m2)
-    viol = torch.stack([relu(-wi).amax(-1) for wi in w]).amax(0)
-    rd_u = (u @ P.T + q_u + l1 @ G
-            + (A.transpose(1, 2) @ l2[..., None])[..., 0]).abs().amax(-1)
-    rd_s = (p_ss * s + q_s - l2 - l3).abs().amax(-1)
-    q_scale = torch.clamp(torch.maximum(q_u.abs().amax(-1),
-                                        q_s.abs().amax(-1)), min=1.0)
-    return ((mu + viol + torch.maximum(rd_u, rd_s)) / q_scale).numpy()
-
-
-def phase_inv(pt, torch, dev, card, res, scenario) -> dict:
-    """10a. `solve_mpc_qp(linsolve="inv")` on the batch run's 768 QPs
-    against "chol": float64 on the card (the plain versions) to the JAX
-    test's bounds, float32 on the card (kernel 3 at k = 60) by converged
-    share and float64 merit.  Returns the inv path's launches."""
-    solve = pt.ops.qp_ipm_structured.solve_mpc_qp
-    f32, f64 = torch.float32, torch.float64
-    (qp64, kw64) = batch_qps(pt, torch, res, scenario, f64, dev)
-    sols64 = {ls: solve(*qp64, **kw64, linsolve=ls) for ls in ("chol", "inv")}
-    du64 = float((sols64["inv"].u - sols64["chol"].u).abs().max())
-    dobj64 = float((sols64["inv"].obj - sols64["chol"].obj).abs().max())
-    for ls, sol in sols64.items():
-        gate(bool(sol.converged.all()), f"[inv] float64 {ls}: not converged")
-    gate(du64 <= INV["u_tol64"], f"[inv] float64: inv controls {du64:.3e} "
-         "from chol")
-    gate(dobj64 <= INV["obj_tol64"], f"[inv] float64: inv objectives "
-         f"{dobj64:.3e} from chol")
-
-    qp32, kw32 = batch_qps(pt, torch, res, scenario, f32, dev)
-    B = qp32[1].shape[0]
-    solve(*qp32, **kw32, linsolve="inv")                     # warm-up
-    out, seen, launches, walls = {}, {}, {}, {}
-    timing = pt.utils.timing
-    for ls in ("chol", "inv"):
-        reset_launches(pt)
-        was, before = timing.record(True), timing.totals()
-        with count_linalg_systems(pt) as counts:
-            out[ls], walls[ls] = timed_ms(
-                torch, lambda ls=ls: solve(*qp32, **kw32, linsolve=ls))
-        replayed = timing.since(before)["counts"].get("ipm.graph_passes", 0)
-        timing.record(was)
-        seen[ls], launches[ls] = dict(counts), read_launches(pt)
-    chol, inv = out["chol"], out["inv"]
-    for ls, sol in out.items():
-        gate(bool(torch.isfinite(sol.u).all()), f"[inv] float32 {ls}: u")
-    conv_c, conv_i = (int(s.converged.sum()) for s in (chol, inv))
-    gate(conv_i >= conv_c - 1, f"[inv] float32: inv converged {conv_i} of "
-         f"{B}, chol {conv_c}")
-    limit = 10 * INV["tol"]
-    merits = {}
-    for ls, sol in out.items():
-        merit = mpc_merit64(qp32, sol)[sol.converged.cpu().numpy()]
-        merits[ls] = float(merit.max())
-        gate(merits[ls] < limit, f"[inv] float32 {ls}: float64 merit "
-             f"{merits[ls]:.3e} of a converged lane (limit {limit:.3e})")
-    # The pass and the polish replay from CUDA graphs: the spy sees the
-    # systems of each traced pass (its warm-up and its capture) and of the
-    # traced polish (two factorisations, one k = 65 solve); the launch
-    # counters count every replay.
-    k60 = seen["inv"].get(("batched_cho_solve", 60, 60), 0)
-    max_it = int(inv.iterations.max())
-    passes = replayed                   # of the inv call, the loop's last
-    traced = seen["inv"].get(("batched_cho_solve", 60, 65), 0)
-    loop_factors = seen["inv"].get(("batched_cholesky", 60, 1), 0) - traced
-    gate(k60 > 0, "[inv]: kernel 3 never ran at k = 60")
-    gate(k60 == loop_factors == 2 * traced,
-         f"[inv]: {k60} solves at k = 60, {loop_factors} factorisations in "
-         f"the loop, {traced} polishes traced")
-    gate(launches["inv"]["batched_cholesky"] == passes + 2
-         and launches["inv"]["batched_cho_solve"] == passes + 6,
-         f"[inv]: launches {launches['inv']} in {passes} passes")
-    gate(("batched_cho_solve", 60, 60) not in seen["chol"],
-         "[inv]: chol solved at k = 60")
-    u_dist = float((inv.u - chol.u).abs().max())
-    print(f"[inv] float64, the batch run's {B} QPs on the card (the plain "
-          f"versions): inv {du64:.3e} from chol in the controls (gate "
-          f"{INV['u_tol64']}), {dobj64:.3e} in the objectives (gate "
-          f"{INV['obj_tol64']}); iterations mean "
-          f"{sols64['chol'].iterations.float().mean().item():.4f} / "
-          f"{sols64['inv'].iterations.float().mean().item():.4f}")
-    print(f"[inv] float32 on the card: converged chol {conv_c / B:.4f}, inv "
-          f"{conv_i / B:.4f} (gate: no lower than chol less one lane); "
-          f"float64 merit of converged lanes at most {merits['chol']:.3e} / "
-          f"{merits['inv']:.3e} (limit {limit:.2e}); iterations mean "
-          f"{chol.iterations.float().mean().item():.4f} / "
-          f"{inv.iterations.float().mean().item():.4f}, max "
-          f"{int(chol.iterations.max())} / {max_it}; inv u {u_dist:.3e} from "
-          f"chol (not gated: the float32 floor)")
-    print(f"[inv] {passes} passes: {k60} solves at k = 60 on kernel 3, one a "
-          f"pass; wall {walls['chol']:.1f} ms chol, {walls['inv']:.1f} ms inv "
-          f"on {card}; launches chol {launches['chol']}, inv "
-          f"{launches['inv']}")
-    return dict(launches=launches["inv"], k60=k60)
-
-
-def phase_k60(pt, torch, dev, gen) -> dict:
-    """10b. Kernel 3 at k = 60 with the identity as right-hand sides
-    (the shape and input of "inv"), at [768, 60, 60], against its plain
-    version, timed as the k = 65 record is."""
-    cl = pt.ops.cuda_linalg
-    lb, kb = pt.experiments.linalg_bench, pt.experiments.kbench
-    B, n = 768, 60
-    f32 = dict(dtype=torch.float32, device=dev)
-    A = torch.randn(B, n, n, generator=gen, **f32)
-    L = cl.batched_cholesky(A @ A.mT + 3.0 * torch.eye(n, **f32))
-    eye = torch.eye(n, **f32).expand(B, n, n).contiguous()
-    x, x_ref = cl.batched_cho_solve(L, eye), cl.batched_cho_solve_plain(L, eye)
-    rel = rel_err(x, x_ref)
-    gate(rel < LINALG_RTOL, f"solve n={n} k={n} (identity): rel err {rel:.3e}")
-
-    def kernel():
-        return cl.batched_cho_solve(L, eye)
-
-    wrapper_ms, plain_ms = plain_vs_kernel_ms(
-        lambda: cl.batched_cho_solve_plain(L, eye), kernel, reps=20)
-    graph_ms = (kb.graph_ms(kernel) + kb.graph_ms(kernel)) / 2
-    library_ms = kb.cuda_ms(lambda: torch.cholesky_solve(eye, L), 20)
-    inverse_ms = kb.cuda_ms(lambda: torch.cholesky_inverse(L), 20)
-    bound, bound_by = lb.cho_solve_bound_ms(B, n, n)
-    print(f"[kernels] batched_cho_solve k=60 [{B}, {n}, {n}] against the "
-          f"identity (\"inv\"'s S^-1): {rel:.2e} relative from the plain "
-          f"version; {graph_ms:.4f} ms as a CUDA graph of launches, "
-          f"{wrapper_ms:.4f} ms launch by launch (plain {plain_ms:.4f} ms, "
-          f"library call torch.cholesky_solve {library_ms:.4f} ms, "
-          f"torch.cholesky_inverse {inverse_ms:.4f} ms); bound {bound:.4f} "
-          f"ms by {bound_by}, {bound / graph_ms:.1%} of it reached")
-    return dict(ms=graph_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
-                cholesky_inverse_ms=inverse_ms,
-                max_abs_err=float((x - x_ref).abs().max()))
-
-
 def phase_benches(pt, torch, dev, card) -> dict:
-    """10c. qpbench's variants and precbench's settings at batch 2048
-    (the bench shape), with the TF32 state around the precision runs."""
+    """10a. qpbench's variants at batch 2048 (the bench shape).  Returns
+    the launches of kernels 2 and 3."""
     import importlib
 
     qb = importlib.import_module(f"{PKG}.experiments.qpbench")
-    pb = importlib.import_module(f"{PKG}.experiments.precbench")
     qps = pt.ops.qp_ipm_structured
     names = ("_factor", "_solve", "_polish", "_select_rows",
              "POLISH_REFINEMENTS")
@@ -2005,53 +1850,11 @@ def phase_benches(pt, torch, dev, card) -> dict:
          f"[qpbench] kernels 2 and 3 never ran: {launches}")
     print(f"[qpbench] on {card}, {QPBENCH['repeats']} repeats of "
           f"{QPBENCH['k']} chained solves; launches {launches}")
-
-    # Precision: "highest" is the call without the argument; "high" and
-    # "default" run the loop with TF32 and the polish without, and leave
-    # the process as pinned.
-    prob, data = qb.make_data(PREC["batch"], 0, dev)
-    qp = qb.assemble(prob, *data)
-    kw = dict(max_iters=35, tol=3e-5)
-    plain, highest = (qps.solve_mpc_qp(*qp, **kw, **extra)
-                      for extra in ({}, {"ipm_precision": "highest"}))
-    gate(all(torch.equal(a, b) for a, b in zip(plain[:-1], highest[:-1])),
-         "[prec] ipm_precision='highest' differs from the default call")
-    real_factor = qps._factor
-    for prec in ("high", "default"):
-        flags = []
-
-        def spy(S):
-            if S.dtype == torch.float32:    # not the float64 rescue's
-                flags.append(torch.backends.cuda.matmul.allow_tf32)
-            return real_factor(S)
-
-        qps._factor = spy
-        try:
-            qps.solve_mpc_qp(*qp, **kw, ipm_precision=prec)
-        finally:
-            qps._factor = real_factor
-        gate(all(flags[:-2]) and not any(flags[-2:]),
-             f"[prec] {prec}: TF32 in the loop / polish {flags}")
-        gate(not torch.backends.cuda.matmul.allow_tf32
-             and torch.get_float32_matmul_precision() == "highest",
-             f"[prec] {prec}: TF32 left on after the call")
-        pt.models.pipeline.pin_matmul_precision(dev)
-    print(f"[prec] ipm_precision='highest' bit-equal to the call without it; "
-          f"'high' and 'default' run the loop's factorisations with TF32 "
-          f"allowed and the polish's without, TF32 off again after each "
-          f"call, pin_matmul_precision passes")
-    reset_launches(pt)
-    prec = pb.run(PREC["batch"], dev, PREC["repeats"], PREC["k"])
-    prec_launches = read_launches(pt)
-    gate(min(prec_launches[name] for name in LINALG) > 0,
-         f"[prec] kernels 2 and 3 never ran: {prec_launches}")
-    for name, r in prec.items():
-        print(f"[prec] {pb.format_line(name, r)} (not gated) on {card}")
-    return dict(qpbench=launches, prec=prec_launches)
+    return launches
 
 
 def phase_native(pt, torch, dev, res, scenario) -> None:
-    """10d. The C++ host solver on the first QPs of the batch run against
+    """10b. The C++ host solver on the first QPs of the batch run against
     the card's float64 IPM, in the generic form z = [u; s].
 
     Both stop at float64's tolerance (merit 1e-9), which on these QPs
@@ -2110,7 +1913,7 @@ def phase_native(pt, torch, dev, res, scenario) -> None:
 
 
 def phase_scripts(pt, torch, dev, card) -> dict:
-    """10e. One gallery scenario (custom head_on, --skip_animate) and both
+    """10c. One gallery scenario (custom head_on, --skip_animate) and both
     demos on the card, counts from 0 before each."""
     import importlib
 
@@ -2281,16 +2084,12 @@ def main() -> int:
     phase_mesh(pt, torch, dev, card, mc_plain)
     new_paths = phase_generic_qp(pt, torch, dev, card)
 
-    # 10. The last modules: linsolve="inv", kernel 3 at k = 60, qpbench,
-    # precbench, the native host solver, the gallery and the demos.
-    inv = phase_inv(pt, torch, dev, card, res, scenario)
-    record["batched_cho_solve"]["k60"] = dict(
-        phase_k60(pt, torch, dev, torch.Generator(device=dev).manual_seed(60)),
-        launches=inv["k60"])
-    benches = phase_benches(pt, torch, dev, card)
+    # 10. The last modules: qpbench, the native host solver, the gallery
+    # and the demos.
+    paths = {"qpbench": phase_benches(pt, torch, dev, card)}
     phase_native(pt, torch, dev, res, scenario)
     scripts = phase_scripts(pt, torch, dev, card)
-    paths = {"inv": inv["launches"], **benches, **scripts}
+    paths.update(scripts)
     for name in LINALG:
         new_paths[name].update({path: counts[name]
                                 for path, counts in paths.items()})

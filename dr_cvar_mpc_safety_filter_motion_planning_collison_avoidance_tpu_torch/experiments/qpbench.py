@@ -4,10 +4,10 @@
         [SPEC ...] [--device cuda|cpu] [--repeats 5] [--k K]
 
 Port of the JAX package's experiments/qpbench.py.  A SPEC is
-`NAME:BATCH[:ITERS][:nopol]` (default `chol:2048 inv:2048`; ITERS is the
-IPM's max_iters, 35 by default; `nopol` leaves the polish out):
+`NAME:BATCH[:ITERS][:nopol]` (default `chol:2048`; ITERS is the IPM's
+max_iters, 35 by default; `nopol` leaves the polish out):
 
-  * chol, inv: `solve_mpc_qp(linsolve=...)`;
+  * chol: `solve_mpc_qp` with a dense G_u;
   * bt: chol with the structured `box_theta` operators;
   * diag: `_factor` / `_solve` replaced by a diagonal solve and no
     polish (wrong maths: it times everything in the IPM but the
@@ -19,7 +19,9 @@ IPM's max_iters, 35 by default; `nopol` leaves the polish out):
     by the first k rows.
 
 Each variant rebinds names of the port's `ops/qp_ipm_structured` and
-restores them on the way out.  The data are the JAX script's: batch
+restores them on the way out, and drops the solver's cached CUDA graphs
+on the way in and out, so that the graphs it replays run its own
+functions.  The data are the JAX script's: batch
 QPs of the custom preset (H = 30, 3 obstacles), x0, x_ref, the normals
 and the offsets drawn from the same laws with a seeded torch.Generator,
 and the QP matrices assembled before any timing.  A timed repeat runs K
@@ -47,8 +49,8 @@ from ..models.mpc_filter import SLACK_LIN, SLACK_QUAD, build_mpc_problem
 from ..ops import qp_ipm_structured as qps
 
 N_OBS = 3
-NAMES = ("chol", "inv", "bt", "diag", "pnone", "pref0", "pref1", "pnotopk")
-DEFAULT_SPECS = ("chol:2048", "inv:2048")
+NAMES = ("chol", "bt", "diag", "pnone", "pref0", "pref1", "pnotopk")
+DEFAULT_SPECS = ("chol:2048",)
 
 
 def make_data(batch: int, seed: int = 0, device=DEFAULT_DEVICE):
@@ -134,9 +136,11 @@ def _rebinds(name: str, polish: bool) -> dict:
 @contextlib.contextmanager
 def variant(name: str, polish: bool = True):
     """Rebind the solver's names for variant `name`; restore them after,
-    raised or not."""
+    raised or not.  The cached graphs are dropped before and after, as
+    they captured the names bound at their first call."""
     new = _rebinds(name, polish)
     old = {key: getattr(qps, key) for key in new}
+    qps._GRAPHS.clear()
     for key, value in new.items():
         setattr(qps, key, value)
     try:
@@ -144,6 +148,7 @@ def variant(name: str, polish: bool = True):
     finally:
         for key, value in old.items():
             setattr(qps, key, value)
+        qps._GRAPHS.clear()
 
 
 def parse_spec(spec: str) -> dict:
@@ -195,12 +200,11 @@ def bench_variant(prob, data, batch: int, name: str, max_iters: int = 35,
     P_uu, q_u, G_u, h1, HS_u, hs_rhs, p_ss, q_s = qp
     box_theta = (prob.Theta.reshape(-1, P_uu.shape[0]) if name == "bt"
                  else None)
-    linsolve = "inv" if name == "inv" else "chol"
 
     def solve(q):
         return qps.solve_mpc_qp(P_uu, q, G_u, h1, HS_u, hs_rhs, p_ss, q_s,
                                 max_iters=max_iters, tol=3e-5,
-                                box_theta=box_theta, linsolve=linsolve)
+                                box_theta=box_theta)
 
     with variant(name, polish):
         sol = solve(q_u)                    # warm-up; its counts reported

@@ -39,11 +39,12 @@ and the loop's state.  The CPU runs the same functions op by op.
 Fused pass: op by op a pass is ~470 small kernels, and even from a graph
 the card spends ~1 ms a pass in the gaps between them.  Where
 `use_fused_pass` takes a solve (float32 on a CUDA tensor, the box layout,
-shared P_uu, n <= 64, "chol", "highest"), the pass is six launches
-instead (`_fused_pass`: three hand kernels of `cuda_ipm` around kernel 2
-and kernel 3 twice) that update the state in place; `_one_pass` stays
-its plain version, and every other solve's.  The graph path and the
-op-by-op path take the same pass for the same key.
+shared P_uu, n <= 64), the pass is six launches instead (`_fused_pass`:
+three hand kernels of `cuda_ipm` around kernel 2 and kernel 3 twice);
+`_one_pass` stays its plain version, and every other solve's.  Both
+update the state's buffers in place (distinct contiguous copies,
+`_dense`), and `_pass_of` picks one of them once a solve: the graph path
+and the op-by-op path run the same pass on the same buffers.
 
 Rescue: a float32 lane that stops unconverged before `max_iters` (the
 stall rule just above float32's merit floor, or a breakdown) is solved
@@ -104,21 +105,18 @@ def use_linalg_kernels(dtype, n: int, k: int = 1) -> bool:
 
 
 def use_fused_pass(device_type: str, dtype, n: int, m2: int, hp,
-                   shared: bool, linsolve: str, ipm_precision: str) -> bool:
+                   shared: bool) -> bool:
     """Whether a solve's passes run on the fused pass kernels
     (`_fused_pass`): float32 on a CUDA tensor, the box layout (`hp`, the
     rows of box_theta, not None), P_uu shared and A per lane (`shared`),
     n <= N_MAX, hp <= cuda_ipm.HP_MAX and 1 <= m2 <= cuda_ipm.M2_MAX soft
-    rows, linsolve "chol" and ipm_precision "highest".  Decided from
-    these alone, never from whether a launch succeeded."""
+    rows.  Decided from these alone, never from whether a launch
+    succeeded."""
     return (device_type == "cuda" and dtype == torch.float32
             and hp is not None and shared and 1 <= n <= N_MAX
-            and hp <= cuda_ipm.HP_MAX and 1 <= m2 <= cuda_ipm.M2_MAX
-            and linsolve == "chol" and ipm_precision == "highest")
+            and hp <= cuda_ipm.HP_MAX and 1 <= m2 <= cuda_ipm.M2_MAX)
 
 
-LINSOLVES = ("chol", "inv")
-IPM_PRECISIONS = ("highest", "high", "default")
 POLISH_REFINEMENTS = 2   # KKT refinement passes of the polish
 
 
@@ -210,27 +208,6 @@ class _DenseOps:
         return (self.G.transpose(-1, -2) * d[:, None, :]) @ self.G
 
 
-@contextlib.contextmanager
-def _loop_precision(ipm_precision: str, dtype, device):
-    """The float32 matmul precision of the IPM loop.  On a CUDA tensor
-    "high" and "default" allow TF32, as XLA:GPU does for both; the
-    process-wide state is restored on the way out, raised or not.  On
-    the CPU nothing global is touched: XLA:CPU computes full float32
-    whatever the setting, so the three settings are bit-equal there."""
-    if (ipm_precision == "highest" or dtype != torch.float32
-            or torch.device(device).type != "cuda"):
-        yield
-        return
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_tf32, torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("high")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved[1])
-        matmul.allow_tf32 = saved[0]
-
-
 def _select_rows(score, k: int):
     """Indices of the k highest scores of each row (the polish's active
     rows)."""
@@ -269,7 +246,6 @@ class _Data(NamedTuple):
     q_scale: torch.Tensor           # [B]
     eye: torch.Tensor               # [n, n]
     T: torch.Tensor | None          # box_theta in the working dtype
-    eye_b: torch.Tensor | None      # [B, n, n], linsolve="inv" only
 
 
 class _Spec(NamedTuple):
@@ -300,9 +276,13 @@ class _State(NamedTuple):
     def of(cls, flat) -> "_State":
         return cls(tuple(flat[:8]), tuple(flat[8:16]), *flat[16:])
 
+    def dense(self) -> "_State":
+        """The state on distinct contiguous copies: what a pass updates."""
+        return _State.of(_dense(self.flat()))
+
 
 def _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,
-             box_theta, linsolve):
+             box_theta):
     """(_Data, _Spec) of a call: the defaults, the checks, the slack
     weights broadcast to [B, m2] and the merit's scale."""
     dtype, device = q_u.dtype, q_u.device
@@ -324,21 +304,8 @@ def _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,
     q_scale = torch.clamp(torch.maximum(q_u.abs().amax(-1),
                                         q_s.abs().amax(-1)), min=1.0)
     eye = torch.eye(n, dtype=dtype, device=device)
-    # "inv" solves S against a materialised identity: kernel 3 takes only
-    # contiguous right-hand sides.  Made once a call, not once a pass.
-    eye_b = eye.expand(Bsz, n, n).contiguous() if linsolve == "inv" else None
-    return (_Data(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, q_scale, eye, T,
-                  eye_b),
+    return (_Data(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, q_scale, eye, T),
             _Spec(m1 + 2 * m2, reg, float(tol), int(max_iters)))
-
-
-def _fused(d: _Data, ipm_precision: str) -> bool:
-    """`use_fused_pass` for a prepared solve."""
-    return use_fused_pass(
-        d.q_u.device.type, d.q_u.dtype, d.q_u.shape[1], d.b.shape[-1],
-        None if d.T is None else d.T.shape[0],
-        d.P_uu.dim() == 2 and d.A.dim() == 3,
-        "chol" if d.eye_b is None else "inv", ipm_precision)
 
 
 def _ops(d: _Data):
@@ -395,8 +362,9 @@ def _start(d: _Data, spec: _Spec, warm) -> _State:
                   iters, ~done & (iters < spec.max_iters))
 
 
-def _one_pass(d: _Data, spec: _Spec, st: _State) -> _State:
-    """One pass of the loop over every lane: the next state."""
+def _next_state(d: _Data, spec: _Spec, st: _State) -> _State:
+    """One pass of the loop over every lane, op by op: the next state, in
+    new tensors."""
     P_uu, q_u, h1, A, b, p_ss, q_s = d.P_uu, d.q_u, d.h1, d.A, d.b, d.p_ss, d.q_s
     m_total, tol, max_iters = spec.m_total, spec.tol, spec.max_iters
     gu = _ops(d)
@@ -431,15 +399,13 @@ def _one_pass(d: _Data, spec: _Spec, st: _State) -> _State:
              + spec.reg * d.eye)
     with annotate("ipm.factor"):
         Lchol = _factor(S)
-        S_inv = None if d.eye_b is None else _solve(Lchol, d.eye_b)
 
     def newton(rc1, rc2, rc3):
         t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
         rhs = (-r_du - gu.rmv(d1 * r_p1 - rc1 / w1)
                - _rmv(A, d2 * r_p2 - rc2 / w2)
                + _rmv(A, d2 * t_s / m_ss))
-        du = (_mv(S_inv, rhs) if S_inv is not None
-              else _solve(Lchol, rhs))
+        du = _solve(Lchol, rhs)
         Adu = _mv(A, du)
         ds = (t_s + d2 * Adu) / m_ss
         dl1 = d1 * (gu.mv(du) + r_p1) - rc1 / w1
@@ -497,6 +463,15 @@ def _one_pass(d: _Data, spec: _Spec, st: _State) -> _State:
     return _State(x, best, best_merit, done, stall, iters, active)
 
 
+def _one_pass(d: _Data, spec: _Spec, st: _State) -> _State:
+    """One pass of the loop op by op, the plain version of `_fused_pass`:
+    updates `st`'s buffers in place (they must be distinct) with
+    `_next_state` and returns `st`."""
+    for dst, src in zip(st.flat(), _next_state(d, spec, st).flat()):
+        dst.copy_(src)
+    return st
+
+
 def _lanes(d: _Data, st: _State) -> cuda_ipm.Lanes:
     """The fused kernels' pointer table of a solve's data and state."""
     return cuda_ipm.lanes((d.P_uu, d.T, d.q_u, d.h1, d.A, d.b, d.p_ss,
@@ -526,8 +501,30 @@ def _fused_pass(d: _Data, spec: _Spec, st: _State) -> _State:
     return st
 
 
+# Counters a pass adds each time it runs, op by op or replayed.
+_one_pass.counters = ()
+_fused_pass.counters = ("ipm.fused_passes",)
+
+
+def _pass_of(d: _Data):
+    """The pass a prepared solve runs, chosen once a solve from its data's
+    metadata: `_fused_pass` where `use_fused_pass` takes it, else
+    `_one_pass`."""
+    fused = use_fused_pass(
+        d.q_u.device.type, d.q_u.dtype, d.q_u.shape[1], d.b.shape[-1],
+        None if d.T is None else d.T.shape[0],
+        d.P_uu.dim() == 2 and d.A.dim() == 3)
+    return _fused_pass if fused else _one_pass
+
+
+def _count_pass(step):
+    """Count one run of the pass `step`, op by op or replayed."""
+    for name in step.counters:
+        timing.count(name)
+
+
 def _dense(tensors) -> list:
-    """Distinct contiguous copies: the fused pass's buffers."""
+    """Distinct contiguous copies: the buffers a pass updates."""
     return [None if t is None else t.contiguous().clone() for t in tensors]
 
 
@@ -560,53 +557,42 @@ def _post(d: _Data, spec: _Spec, st: _State):
     return sol, use_p
 
 
-def _ipm_eager(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
+def _ipm_eager(d: _Data, spec: _Spec, warm) -> MPCQPSolution:
     """The solve without graphs, pass by pass: the CPU's path and the
     rescue's (op by op), and on the card the graph path's reference (the
-    same passes, fused where `use_fused_pass` takes the solve)."""
-    st = _start(d, spec, warm)
-    fused = _fused(d, ipm_precision)
-    if fused:
-        d, st = _Data(*_dense(d)), _State.of(_dense(st.flat()))
-    with _loop_precision(ipm_precision, d.q_u.dtype, d.q_u.device):
-        while _still_active(st.active):
-            with annotate("ipm.pass"):
-                if fused:
-                    _fused_pass(d, spec, st)
-                    timing.count("ipm.fused_passes")
-                else:
-                    st = _one_pass(d, spec, st)
+    same pass, `_pass_of`'s, on the same buffers)."""
+    step = _pass_of(d)
+    st = _start(d, spec, warm).dense()
+    d = _Data(*_dense(d))
+    while _still_active(st.active):
+        with annotate("ipm.pass"):
+            step(d, spec, st)
+            _count_pass(step)
     sol, use_p = _post(d, spec, st)
     if timing.RECORDING:
         timing.count("ipm.polish_kept", int(use_p.sum()))
     return sol
 
 
-# Module-level names the captured work calls at capture time, so a
-# rebinding (experiments/qpbench.py's variants, a test's spy) is captured
-# as itself: each is part of the graphs' key.
-_CAPTURED_NAMES = ("_factor", "_solve", "_select_rows", "_polish",
-                   "POLISH_REFINEMENTS", "batched_cholesky",
-                   "batched_cho_solve", "batched_cholesky_plain",
-                   "batched_cho_solve_plain")
 GRAPH_CACHE_SIZE = 8     # keys whose graphs are kept, least recent dropped
 _KERNELS = (batched_cholesky, batched_cho_solve, ipm_residuals,
             ipm_predictor, ipm_step)               # they own `.launches`
 
 
-def _graph_key(d: _Data, spec: _Spec, ipm_precision: str) -> tuple:
+def _graph_key(d: _Data, spec: _Spec, step) -> tuple:
     """Everything that changes the captured work: every tensor's device,
-    dtype, shape and strides (so B, n, m1, m2, shared or per-lane P_uu
-    and G_u, box or dense, "inv"), the numbers of the spec, the loop's
-    precision, whether the pass is the fused one, the process's float32
-    matmul settings, and the module-level names the work calls."""
-    names = globals()
-    return (tuple(None if t is None else
-                  (t.device, t.dtype, tuple(t.shape), t.stride()) for t in d),
-            spec, ipm_precision, _fused(d, ipm_precision),
+    dtype and shape (so B, n, m1, m2, shared or per-lane P_uu and G_u,
+    box or dense), the numbers of the spec, the pass (`_pass_of`'s) and
+    the process's float32 matmul settings.  Code that rebinds the names
+    the work calls drops `_GRAPHS` instead (qpbench's `variant`)."""
+    return (tuple(None if t is None else (t.device, t.dtype, tuple(t.shape))
+                  for t in d),
+            spec, step,
+            # A caller of `filter_trajectory` outside the pipeline can turn
+            # TF32 on for the whole process, and the captured plain pass and
+            # polish run torch matmuls.
             torch.get_float32_matmul_precision(),
-            torch.backends.cuda.matmul.allow_tf32,
-            tuple(names[name] for name in _CAPTURED_NAMES))
+            torch.backends.cuda.matmul.allow_tf32)
 
 
 def _capture(fn):
@@ -627,24 +613,20 @@ def _capture(fn):
 
 
 class _Graphs:
-    """The CUDA graphs of one key: a pass of the loop, and the work after
-    it (best iterate, polish, acceptance, finalize).  Both read and write
-    only static buffers: the call's data is copied into `d` and its first
-    state into `state` before the loop; the pass graph writes the next
-    state back into `state`; the post graph's results are cloned out by
-    the caller.  The fused pass (`fused`) updates `state` in place, on
-    contiguous buffers.  The hand kernels' `.launches` count each
-    replay's launches; the warm-up and the capture are not counted."""
+    """The CUDA graphs of one key: a pass of the loop (`step`), and the
+    work after it (best iterate, polish, acceptance, finalize).  Both read
+    and write only static buffers (`_dense`): the call's data is copied
+    into `d` and its first state into `state` before the loop; the pass
+    updates `state` in place; the post graph's results are cloned out by
+    the caller.  The hand kernels' `.launches` count each replay's
+    launches; the warm-up and the capture are not counted."""
 
     _side: dict = {}       # device -> the stream the graphs are captured on
 
-    def __init__(self, d: _Data, st0: _State, fused: bool):
-        self.fused = fused
-        like = _dense if fused else (
-            lambda ts: [None if t is None else torch.empty_like(t)
-                        for t in ts])
-        self.d = _Data(*like(d))
-        self.state = _State.of(like(st0.flat()))
+    def __init__(self, d: _Data, st0: _State, step):
+        self.step = step
+        self.d = _Data(*_dense(d))
+        self.state = st0.dense()
 
     def load(self, d: _Data, st0: _State):
         for dst, src in zip(self.d, d):
@@ -653,18 +635,10 @@ class _Graphs:
         for dst, src in zip(self.state.flat(), st0.flat()):
             dst.copy_(src)
 
-    def _step(self, spec: _Spec):
-        if self.fused:
-            _fused_pass(self.d, spec, self.state)
-            return
-        new = _one_pass(self.d, spec, self.state)
-        for dst, src in zip(self.state.flat(), new.flat()):
-            dst.copy_(src)
-
-    def capture(self, spec: _Spec, ipm_precision: str):
-        """Warm up one pass on the capture stream (library handles and
-        lazily loaded kernels are set up outside any capture), then
-        capture the pass and the post-loop work."""
+    def capture(self, spec: _Spec):
+        """Warm up one pass on copies of the state, on the capture stream
+        (library handles and lazily loaded kernels are set up outside any
+        capture), then capture the pass and the post-loop work."""
         device = self.d.q_u.device
         side = self._side.get(device)
         if side is None:
@@ -674,14 +648,10 @@ class _Graphs:
         before = [fn.launches for fn in _KERNELS]
         try:
             with torch.cuda.stream(side):
-                with _loop_precision(ipm_precision, self.d.q_u.dtype, device):
-                    if self.fused:   # on copies: it writes in place
-                        _fused_pass(self.d, spec,
-                                    _State.of(_dense(self.state.flat())))
-                    else:
-                        _one_pass(self.d, spec, self.state)
-                    mid = [fn.launches for fn in _KERNELS]
-                    self.pass_graph, _ = _capture(lambda: self._step(spec))
+                self.step(self.d, spec, self.state.dense())
+                mid = [fn.launches for fn in _KERNELS]
+                self.pass_graph, _ = _capture(
+                    lambda: self.step(self.d, spec, self.state))
                 after_pass = [fn.launches for fn in _KERNELS]
                 self.post_graph, (self.sol, self.use_p) = _capture(
                     lambda: _post(self.d, spec, self.state))
@@ -698,8 +668,7 @@ class _Graphs:
         for fn, n in zip(_KERNELS, self.pass_launches):
             fn.launches += n
         timing.count("ipm.graph_passes")
-        if self.fused:
-            timing.count("ipm.fused_passes")
+        _count_pass(self.step)
 
     def replay_post(self):
         self.post_graph.replay()
@@ -710,19 +679,20 @@ class _Graphs:
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
 
 
-def _ipm_graphs(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
+def _ipm_graphs(d: _Data, spec: _Spec, warm) -> MPCQPSolution:
     """The solve on a CUDA tensor: the first state op by op, then each
     pass and the post-loop work replayed from the key's graphs, captured
     at the key's first call.  Passes, iterations and every lane's
     iterates are the eager loop's: the same kernels run in the same
     order, and the loop reads back `active` once a pass as it does."""
-    key = _graph_key(d, spec, ipm_precision)
+    step = _pass_of(d)
+    key = _graph_key(d, spec, step)
     st0 = _start(d, spec, warm)
     graphs = _GRAPHS.pop(key, None)
     if graphs is None:
-        graphs = _Graphs(d, st0, _fused(d, ipm_precision))
+        graphs = _Graphs(d, st0, step)
         graphs.load(d, st0)
-        graphs.capture(spec, ipm_precision)
+        graphs.capture(spec)
     else:
         graphs.load(d, st0)
     _GRAPHS[key] = graphs
@@ -742,8 +712,7 @@ def _ipm_graphs(d: _Data, spec: _Spec, warm, ipm_precision) -> MPCQPSolution:
     return sol
 
 
-def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution,
-            linsolve: str) -> MPCQPSolution:
+def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution) -> MPCQPSolution:
     """Re-solve in float64 the float32 lanes that stopped unconverged
     before the iteration cap (the stall rule or a breakdown), warm from
     their float32 iterates, with the same cap and tolerance; the cold
@@ -764,10 +733,9 @@ def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution,
                 per_lane(d.P_uu), lanes(d.q_u), per_lane(d.G_u),
                 lanes(d.h1), lanes(d.A), lanes(d.b), lanes(d.p_ss),
                 lanes(d.q_s), spec.max_iters, spec.tol,
-                None if d.T is None else d.T.to(f64), linsolve)
+                None if d.T is None else d.T.to(f64))
             warm = (sol.u, sol.s, *sol.mults)
-            r = _ipm_eager(d64, spec64, tuple(lanes(t) for t in warm),
-                           "highest")
+            r = _ipm_eager(d64, spec64, tuple(lanes(t) for t in warm))
         finally:
             timing.record(was)
     timing.count("ipm.rescued", int(idx.numel()))
@@ -787,8 +755,7 @@ def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution,
 
 def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                  max_iters: int = 60, tol: float | None = None,
-                 warm=None, box_theta=None, linsolve: str = "chol",
-                 ipm_precision: str = "highest") -> MPCQPSolution:
+                 warm=None, box_theta=None) -> MPCQPSolution:
     """Solve a batch of the slack-structured QPs above.
 
     Shapes: q_u [B, n], h1 [B, m1], A [B, m2, n], b [B, m2];
@@ -808,20 +775,9 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     tracking and the polish are the same, so a bad start costs
     iterations, never accuracy.
 
-    `linsolve` picks how each pass solves its two Newton systems:
-      * "chol": factor S once, two single right-hand-side solves
-        (predictor, corrector);
-      * "inv": factor S once, S^-1 = one solve with the n columns of the
-        identity as right-hand sides, and both Newton steps become
-        batched matvecs S^-1 rhs.  The polish keeps its Cholesky solves.
-    Both go through `_factor` / `_solve`, so "inv" on float32 with n <=
-    64 runs kernel 3 with k = n.  Any other value raises ValueError (the
-    JAX solver reads every other string as "chol").
-
-    `ipm_precision` ("highest", "high" or "default"): the float32 matmul
-    precision of the iteration loop only (see `_loop_precision`); the
-    polish and the reported residuals always run at full float32.  Any
-    other value raises ValueError.
+    Each pass factors S once and solves two single right-hand sides
+    (predictor, corrector), at the process's float32 matmul precision
+    (the pipeline pins it to "highest").
 
     The IPM's answer goes through the active-set Newton polish
     (`_polish`), which takes a float32 iterate from the IPM's merit floor
@@ -833,22 +789,16 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     way a float32 lane that stops unconverged before `max_iters` is
     solved again in float64 (`_rescue`).
     """
-    if linsolve not in LINSOLVES:
-        raise ValueError(f"linsolve must be one of {LINSOLVES}, got "
-                         f"{linsolve!r}")
-    if ipm_precision not in IPM_PRECISIONS:
-        raise ValueError(f"ipm_precision must be one of {IPM_PRECISIONS}, "
-                         f"got {ipm_precision!r}")
     timing.count("ipm.lanes", q_u.shape[0])
     d, spec = _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,
-                       box_theta, linsolve)
+                       box_theta)
     if q_u.is_cuda and q_u.shape[0]:
-        sol = _ipm_graphs(d, spec, warm, ipm_precision)
+        sol = _ipm_graphs(d, spec, warm)
     else:
-        sol = _ipm_eager(d, spec, warm, ipm_precision)
+        sol = _ipm_eager(d, spec, warm)
     if q_u.dtype == torch.float64:
         return sol
-    return _rescue(d, spec, sol, linsolve)
+    return _rescue(d, spec, sol)
 
 
 def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,

@@ -675,8 +675,8 @@ def test_mesh_data1_runs_on_nccl(cuda, tmp_path):
 
 @pytest.mark.parametrize("B", [1, 37, 768])
 def test_cho_solve_k60_against_the_identity(cuda, B):
-    """Kernel 3 at k = 60 with the identity as right-hand sides, the
-    shape and input of `solve_mpc_qp(linsolve="inv")`: S^-1."""
+    """Kernel 3 at k = 60 with the identity as right-hand sides (S^-1 of
+    60 x 60 SPD matrices): one launch, to its plain version."""
     gen = torch.Generator(device=cuda).manual_seed(B)
     A = torch.randn(B, 60, 60, device=cuda, generator=gen)
     L = cl.batched_cholesky(A @ A.mT + 3.0 * torch.eye(60, device=cuda))
@@ -686,41 +686,3 @@ def test_cho_solve_k60_against_the_identity(cuda, B):
     torch.cuda.synchronize()
     assert cl.batched_cho_solve.launches == before + 1
     assert _rel(x, cl.batched_cho_solve_plain(L, eye)) < 1e-5
-
-
-def test_inv_runs_kernel_3_at_k60_once_a_pass(cuda):
-    """linsolve="inv" on float32 H = 30 QPs (qpbench's data): one k = 60
-    solve on kernel 3 a pass, every other solve of the call on kernel 3
-    too; "high" leaves TF32 off after the call.  The pass and the polish
-    replay from CUDA graphs, so the spy sees the solves of their warm-up
-    and capture (one k = 60 solve a traced pass, one k = 65 solve a traced
-    polish), and the launch counter each replay's."""
-    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments import (
-        qpbench)
-    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
-        qp_ipm_structured as qps)
-
-    prob, data = qpbench.make_data(8, 0, cuda)
-    qp = qpbench.assemble(prob, *data)
-    real, ks = qps.batched_cho_solve, []
-
-    def spy(L, r):
-        ks.append(1 if r.dim() == 2 else r.shape[-1])
-        return real(L, r)
-
-    qps.batched_cho_solve = spy
-    was, totals = pt.utils.timing.record(True), pt.utils.timing.totals()
-    try:
-        before = cl.batched_cho_solve.launches
-        inv = qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5, linsolve="inv")
-        torch.cuda.synchronize()
-        passes = pt.utils.timing.since(totals)["counts"]["ipm.graph_passes"]
-    finally:
-        qps.batched_cho_solve = real
-        pt.utils.timing.record(was)
-    assert cl.batched_cho_solve.launches - before == passes + 6
-    assert set(ks) == {60, 65, 1} and ks.count(60) == 2 * ks.count(65) > 0
-    assert bool(torch.isfinite(inv.u).all())
-    qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5, ipm_precision="high")
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert torch.get_float32_matmul_precision() == "highest"

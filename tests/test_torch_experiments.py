@@ -2,9 +2,8 @@
 run on the CPU at small sizes.
 
   * `experiments.qpbench`: every variant at batch 8 prints one line, and
-    the solver's names are restored afterwards (also when a run raises);
-  * `experiments.precbench` at batch 8: the three settings, bit-equal on
-    the CPU;
+    the solver's names are restored afterwards (also when a run raises),
+    the solver's cached graphs dropped on the way in and out;
   * `experiments.make_gallery` cut to custom / head_on with
     --skip_animate writes the JAX gallery's head_on files but the
     animation (`results/Custom_Scenarios/head_on_*`), into tmp_path;
@@ -28,7 +27,7 @@ from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch impo
 from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.demos import (
     multi_obstacle, single_obstacle)
 from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.experiments import (
-    make_gallery, precbench, qpbench)
+    make_gallery, qpbench)
 from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.models import (
     METRICS)
 from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
@@ -77,7 +76,7 @@ def test_qpbench_every_variant(capsys, results_untouched):
 @pytest.mark.parametrize("name,rebound", [
     ("diag", {"_factor", "_solve", "_polish"}), ("pnone", {"_polish"}),
     ("pref0", {"POLISH_REFINEMENTS"}), ("pnotopk", {"_select_rows"}),
-    ("chol", set()), ("inv", set()), ("bt", set())])
+    ("chol", set()), ("bt", set())])
 def test_qpbench_variants_restore_the_solver(name, rebound):
     before = _solver_names()
     with pytest.raises(RuntimeError, match="inside"):
@@ -108,13 +107,20 @@ def test_qpbench_data_follow_the_jax_laws():
     assert (p_ss, q_s) == (100.0, 50.0)
 
 
-def test_precbench_settings_on_the_cpu(capsys):
-    out = precbench.main(["--batch", "8"] + SMALL)
-    lines = capsys.readouterr().out.splitlines()
-    assert [line.split(":")[0].strip() for line in lines] == list(
-        qps.IPM_PRECISIONS)
-    for r in out.values():
-        assert r["u_dist"] == 0.0 and r["converged"] == 1.0
+def test_a_qpbench_variant_drops_the_cached_graphs():
+    """The graphs captured the names bound at their first call, so a
+    variant, which rebinds them, drops the cache on entry and on exit."""
+    sentinel = ("sentinel",)
+    qps._GRAPHS[sentinel] = object()
+    try:
+        with pytest.raises(RuntimeError, match="inside"):
+            with qpbench.variant("pnone"):
+                assert sentinel not in qps._GRAPHS
+                qps._GRAPHS[sentinel] = object()
+                raise RuntimeError("inside")
+        assert sentinel not in qps._GRAPHS
+    finally:
+        qps._GRAPHS.pop(sentinel, None)
 
 
 def test_make_gallery_writes_the_jax_names(tmp_path, results_untouched):

@@ -3,7 +3,8 @@ kernels of `ops/cuda_ipm.py`) against its plain version `_one_pass`.
 
 On the CPU: which solves take the fused pass (`use_fused_pass`, a pure
 function of dtype, device type and shapes), its place in the CUDA
-graphs' key, and the checks of the kernels' pointer table.
+graphs' key, the contract both passes share (the state's buffers updated
+in place), and the checks of the kernels' pointer table.
 
 Marked `cuda` (skipped where torch sees no CUDA device: the kernels have
 no CPU mode), on the card:
@@ -33,8 +34,7 @@ FUSED_KERNELS = (cuda_ipm.ipm_residuals, cuda_ipm.ipm_predictor,
 # CPU: the choice and its checks
 # ---------------------------------------------------------------------------
 
-BASE = dict(device_type="cuda", dtype=F32, n=60, m2=90, hp=60, shared=True,
-            linsolve="chol", ipm_precision="highest")
+BASE = dict(device_type="cuda", dtype=F32, n=60, m2=90, hp=60, shared=True)
 # (change to BASE, taken): every condition of `use_fused_pass` on its own.
 DISPATCH = {
     "batch256": ({}, True),
@@ -49,9 +49,6 @@ DISPATCH = {
     "hp_above_cap": ({"hp": cuda_ipm.HP_MAX + 2}, False),
     "m2_above_cap": ({"m2": cuda_ipm.M2_MAX + 1}, False),
     "no_soft_rows": ({"m2": 0}, False),
-    "inv": ({"linsolve": "inv"}, False),
-    "tf32_high": ({"ipm_precision": "high"}, False),
-    "tf32_default": ({"ipm_precision": "default"}, False),
 }
 
 
@@ -76,12 +73,44 @@ def test_the_graph_key_holds_the_choice(monkeypatch):
     same data and settings make another key, so a key's graphs never
     replay the other pass."""
     qp, theta = cpu_qps(4)
-    d, spec = qps._prepare(*qp, 60, 3e-5, theta, "chol")
-    assert not qps._fused(d, "highest")
-    plain = qps._graph_key(d, spec, "highest")
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta)
+    assert qps._pass_of(d) is qps._one_pass
+    plain = qps._graph_key(d, spec, qps._pass_of(d))
     monkeypatch.setattr(qps, "use_fused_pass", lambda *a: True)
-    assert qps._fused(d, "highest")
-    assert qps._graph_key(d, spec, "highest") != plain
+    assert qps._pass_of(d) is qps._fused_pass
+    assert qps._graph_key(d, spec, qps._pass_of(d)) != plain
+
+
+def cpu_start(d, spec, start):
+    """A state on distinct buffers: the cold start, a warm start from a
+    nearby solve (q_u moved by 1e-3), or the state after three passes."""
+    if start == "warm":
+        sol = qps._ipm_eager(d._replace(q_u=d.q_u * (1 + 1e-3)), spec, None)
+        return qps._start(d, spec, (sol.u, sol.s, *sol.mults)).dense()
+    st = qps._start(d, spec, None).dense()
+    for _ in range(3 if start == "mid" else 0):
+        qps._one_pass(d, spec, st)
+    return st
+
+
+@pytest.mark.parametrize("start", ["cold", "warm", "mid"])
+def test_one_pass_updates_the_state_in_place(start):
+    """The plain pass keeps the fused pass's contract: it writes the next
+    state (`_next_state`'s, bit for bit) into the state's own buffers,
+    returns that state and leaves the data as it was."""
+    qp, theta = cpu_qps(6, seed=2)
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta)
+    st = cpu_start(d, spec, start)
+    assert bool(st.active.any())
+    want = qps._next_state(d, spec, st)
+    data = [None if t is None else t.clone() for t in d]
+    ptrs = [t.data_ptr() for t in st.flat()]
+    assert qps._one_pass(d, spec, st) is st
+    assert [t.data_ptr() for t in st.flat()] == ptrs
+    for a, b in zip(st.flat(), want.flat()):
+        assert torch.equal(a, b)
+    for a, b in zip(d, data):
+        assert a is None and b is None or torch.equal(a, b)
 
 
 def test_the_cpu_solve_runs_no_fused_pass():
@@ -148,11 +177,10 @@ def test_a_strided_tensor_is_refused():
 
 def test_the_wrappers_refuse_cpu_tensors():
     qp, theta = cpu_qps(2)
-    d, spec = qps._prepare(*qp, 60, 3e-5, theta, "chol")
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta)
     st = qps._start(d, spec, None)
     with pytest.raises(ValueError, match="CUDA"):
-        qps._fused_pass(qps._Data(*qps._dense(d)), spec,
-                        qps._State.of(qps._dense(st.flat())))
+        qps._fused_pass(qps._Data(*qps._dense(d)), spec, st.dense())
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +233,9 @@ PASS_RTOL = {"cold": 1e-4, "warm": 1e-4, "mid": 1e-3, "stopped": 1e-3}
 
 
 def one_pass_both(d, spec, st):
-    """(the plain pass's state, the fused pass's) from `st`."""
-    plain = qps._one_pass(d, spec, st)
-    fused = qps._State.of(qps._dense(st.flat()))
-    qps._fused_pass(qps._Data(*qps._dense(d)), spec, fused)
+    """(the plain pass's state, the fused pass's) from copies of `st`."""
+    plain = qps._one_pass(d, spec, st.dense())
+    fused = qps._fused_pass(qps._Data(*qps._dense(d)), spec, st.dense())
     return plain, fused
 
 
@@ -220,11 +247,11 @@ def start_state(d, spec, start):
         return qps._start(d, spec, None)
     if start == "warm":
         moved = d._replace(q_u=d.q_u * (1 + 1e-3))
-        sol = qps._ipm_eager(moved, spec, None, "highest")
+        sol = qps._ipm_eager(moved, spec, None)
         return qps._start(d, spec, (sol.u, sol.s, *sol.mults))
-    st = qps._start(d, spec, None)
+    st = qps._start(d, spec, None).dense()
     for _ in range(4):
-        st = qps._one_pass(d, spec, st)
+        qps._one_pass(d, spec, st)
     if start == "stopped":
         stop = torch.zeros_like(st.done)
         stop[::3] = True
@@ -241,7 +268,7 @@ def test_one_pass_matches_the_plain_pass(cuda, shape, start):
     bit for bit."""
     batch, n_obs, horizon = SHAPES[shape]
     args, kwargs = mpc_qps(cuda, batch, n_obs, horizon, seed=11)
-    d, spec, _ = prepared(args, kwargs)
+    d, spec = prepared(args, kwargs)
     st = start_state(d, spec, start)
     plain, fused = one_pass_both(d, spec, st)
     torch.cuda.synchronize()
@@ -371,8 +398,6 @@ def test_the_seed42_scenarios_agree_with_the_oracle_and_the_plain_pass(
 # horizon, dtype, settings, box layout).
 OFF = {
     "float64": (64, 3, 30, F64, {}, True),
-    "inv": (64, 3, 30, F32, {"linsolve": "inv"}, True),
-    "tf32": (64, 3, 30, F32, {"ipm_precision": "high"}, True),
     "dense_G_u": (64, 3, 30, F32, {}, False),
     "H40": (64, 3, 40, F32, {}, True),
 }
@@ -386,8 +411,8 @@ def test_these_solves_stay_off_the_fused_pass(cuda, case):
     kwargs = {**kwargs, **extra}
     if not box:
         kwargs["box_theta"] = None
-    d, _, prec = prepared(args, kwargs)
-    assert not qps._fused(d, prec)
+    d, _ = prepared(args, kwargs)
+    assert qps._pass_of(d) is qps._one_pass
     before = [k.launches for k in FUSED_KERNELS]
     was, totals = timing.record(True), timing.totals()
     try:
@@ -406,17 +431,17 @@ def test_launches_and_fused_passes_equal_the_passes(cuda, path):
     """Each pass launches each fused kernel once, kernel 2 once and kernel
     3 twice (the polish adds 2 and 6 a solve), and counts one fused pass."""
     args, kwargs = mpc_qps(cuda, 48, 3, seed=14)
-    d, spec, prec = prepared(args, kwargs)
-    assert qps._fused(d, prec)
-    qps._ipm_graphs(d, spec, None, prec)               # captures the key
+    d, spec = prepared(args, kwargs)
+    assert qps._pass_of(d) is qps._fused_pass
+    qps._ipm_graphs(d, spec, None)                     # captures the key
     kernels = FUSED_KERNELS + (cl.batched_cholesky, cl.batched_cho_solve)
     before = [k.launches for k in kernels]
     was, totals = timing.record(True), timing.totals()
     try:
         if path == "graphs":
-            qps._ipm_graphs(d, spec, None, prec)
+            qps._ipm_graphs(d, spec, None)
         else:
-            qps._ipm_eager(d, spec, None, prec)
+            qps._ipm_eager(d, spec, None)
         counts = timing.since(totals)["counts"]
     finally:
         timing.record(was)

@@ -66,10 +66,8 @@ def mpc_qps(device, batch, n_obs, horizon=30, dtype=torch.float32, seed=0):
 
 def prepared(args, kwargs, **extra):
     kwargs = {**kwargs, **extra}
-    d, spec = qps._prepare(*args, kwargs.get("max_iters", 60),
-                           kwargs.get("tol"), kwargs.get("box_theta"),
-                           kwargs.get("linsolve", "chol"))
-    return d, spec, kwargs.get("ipm_precision", "highest")
+    return qps._prepare(*args, kwargs.get("max_iters", 60),
+                        kwargs.get("tol"), kwargs.get("box_theta"))
 
 
 def assert_bit_equal(a, b):
@@ -79,45 +77,27 @@ def assert_bit_equal(a, b):
         assert torch.equal(x, y), "mults"
 
 
-# (batch, obstacles, horizon, dtype, solver settings): batch256's,
-# mc300's and loop's shapes, float64 and H = 40 (the plain paths), "inv"
-# and TF32 in the loop.
+# (batch, obstacles, horizon, dtype): batch256's, mc300's and loop's
+# shapes (the fused pass), float64 and H = 40 (the plain pass).
 CASES = {
-    "batch256": (768, 3, 30, torch.float32, {}),
-    "mc300": (900, 1, 30, torch.float32, {}),
-    "loop": (3, 3, 30, torch.float32, {}),
-    "float64": (768, 3, 30, torch.float64, {}),
-    "H40": (768, 3, 40, torch.float32, {}),
-    "inv": (768, 3, 30, torch.float32, {"linsolve": "inv"}),
-    "high": (768, 3, 30, torch.float32, {"ipm_precision": "high"}),
+    "batch256": (768, 3, 30, torch.float32),
+    "mc300": (900, 1, 30, torch.float32),
+    "loop": (3, 3, 30, torch.float32),
+    "float64": (768, 3, 30, torch.float64),
+    "H40": (768, 3, 40, torch.float32),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_graph_path_is_bit_equal_to_the_eager_path(cuda, case):
-    """Bit-equal in full float32 and in float64.  With TF32 in the loop
-    ("high") cuBLAS's products are not reproducible from one stream or
-    capture to another (two op-by-op runs on two streams part after the
-    second pass): there the first pass is bit-equal, and the graphs
-    replay themselves bit for bit."""
-    batch, n_obs, horizon, dtype, extra = CASES[case]
+    """Bit-equal on either pass, the capture's call and a replay."""
+    batch, n_obs, horizon, dtype = CASES[case]
     args, kwargs = mpc_qps(cuda, batch, n_obs, horizon, dtype)
-    d, spec, prec = prepared(args, kwargs, **extra)
-    graphs = [qps._ipm_graphs(d, spec, None, prec) for _ in range(2)]
-    if prec == "highest":
-        eager = qps._ipm_eager(d, spec, None, prec)
-        for sol in graphs:              # the capture's call, then a replay
-            assert_bit_equal(sol, eager)
-    else:
-        assert_bit_equal(graphs[1], graphs[0])
-        st = qps._start(d, spec, None)
-        with qps._loop_precision(prec, dtype, cuda):
-            eager = qps._one_pass(d, spec, st)
-        entry = qps._GRAPHS[qps._graph_key(d, spec, prec)]
-        entry.load(d, st)
-        entry.replay_pass()
-        for a, b in zip(entry.state.flat(), eager.flat()):
-            assert torch.equal(a, b)
+    d, spec = prepared(args, kwargs)
+    graphs = [qps._ipm_graphs(d, spec, None) for _ in range(2)]
+    eager = qps._ipm_eager(d, spec, None)
+    for sol in graphs:
+        assert_bit_equal(sol, eager)
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
@@ -126,38 +106,40 @@ def test_a_result_survives_the_next_call(cuda):
     same key with other data leaves the first call's result as it was."""
     first = mpc_qps(cuda, 96, 3, seed=1)
     second = mpc_qps(cuda, 96, 3, seed=2)
-    d1, spec, prec = prepared(*first)
-    want = qps._ipm_eager(d1, spec, None, prec)
-    got = qps._ipm_graphs(d1, spec, None, prec)
-    d2, spec2, _ = prepared(*second)
-    assert qps._graph_key(d1, spec, prec) == qps._graph_key(d2, spec2, prec)
-    other = qps._ipm_graphs(d2, spec2, None, prec)
+    d1, spec = prepared(*first)
+    want = qps._ipm_eager(d1, spec, None)
+    got = qps._ipm_graphs(d1, spec, None)
+    d2, spec2 = prepared(*second)
+    assert qps._graph_key(d1, spec, qps._pass_of(d1)) == \
+        qps._graph_key(d2, spec2, qps._pass_of(d2))
+    other = qps._ipm_graphs(d2, spec2, None)
     assert not torch.equal(other.u, got.u)
     assert_bit_equal(got, want)
 
 
 def test_warm_start_replays_like_the_eager_path(cuda):
     args, kwargs = mpc_qps(cuda, 96, 3, seed=3)
-    d, spec, prec = prepared(args, kwargs)
-    cold = qps._ipm_eager(d, spec, None, prec)
+    d, spec = prepared(args, kwargs)
+    cold = qps._ipm_eager(d, spec, None)
     warm = (cold.u, cold.s, *cold.mults)
-    assert_bit_equal(qps._ipm_graphs(d, spec, warm, prec),
-                     qps._ipm_eager(d, spec, warm, prec))
+    assert_bit_equal(qps._ipm_graphs(d, spec, warm),
+                     qps._ipm_eager(d, spec, warm))
 
 
 @pytest.mark.parametrize("name", ["pnone", "pref0", "pnotopk", "diag"])
 def test_a_qpbench_rebinding_is_replayed_as_itself(cuda, name):
-    """A variant's rebound names are part of the key: its graphs run the
-    variant, and the plain solver's graphs stay the plain solver's."""
+    """A variant drops the cached graphs on its way in and out: its graphs
+    run the variant, and the plain solver's graphs after it are the
+    plain solver's again."""
     args, kwargs = mpc_qps(cuda, 96, 3, seed=4)
-    d, spec, prec = prepared(args, kwargs)
-    plain = qps._ipm_graphs(d, spec, None, prec)
+    d, spec = prepared(args, kwargs)
+    plain = qps._ipm_graphs(d, spec, None)
     with qpbench.variant(name):
-        eager = qps._ipm_eager(d, spec, None, prec)
-        assert_bit_equal(qps._ipm_graphs(d, spec, None, prec), eager)
+        eager = qps._ipm_eager(d, spec, None)
+        assert_bit_equal(qps._ipm_graphs(d, spec, None), eager)
     if name == "pnone":
         assert not torch.equal(eager.u, plain.u)
-    assert_bit_equal(qps._ipm_graphs(d, spec, None, prec), plain)
+    assert_bit_equal(qps._ipm_graphs(d, spec, None), plain)
 
 
 def test_replays_count_the_kernels_and_the_graph_passes(cuda):
@@ -185,8 +167,8 @@ def test_the_cache_keeps_the_most_recent_keys(cuda):
     keys = []
     for batch in range(1, qps.GRAPH_CACHE_SIZE + 3):
         args, kwargs = mpc_qps(cuda, batch, 1, seed=batch)
-        d, spec, prec = prepared(args, kwargs)
-        keys.append(qps._graph_key(d, spec, prec))
+        d, spec = prepared(args, kwargs)
+        keys.append(qps._graph_key(d, spec, qps._pass_of(d)))
     assert len(qps._GRAPHS) == qps.GRAPH_CACHE_SIZE
     assert list(qps._GRAPHS)[-qps.GRAPH_CACHE_SIZE:] == \
         keys[-qps.GRAPH_CACHE_SIZE:]

@@ -39,8 +39,8 @@ def bench_qps(batch, dtype=F32, seed=0):
 
 def test_a_lane_stopped_below_the_cap_is_rescued():
     qp, theta = bench_qps(8)
-    d, spec = qps._prepare(*qp, 60, 3e-5, theta, "chol")
-    sol = qps._ipm_eager(d, spec, None, "highest")
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta)
+    sol = qps._ipm_eager(d, spec, None)
     assert bool(sol.converged.all())
     # Lane 5 reported as stopped unconverged after 7 float32 iterations.
     fake = sol._replace(converged=sol.converged.clone(),
@@ -49,7 +49,7 @@ def test_a_lane_stopped_below_the_cap_is_rescued():
     fake.iterations[5] = 7
     was, before = timing.record(True), timing.totals()
     try:
-        out = qps._rescue(d, spec, fake, "chol")
+        out = qps._rescue(d, spec, fake)
         added = timing.since(before)
     finally:
         timing.record(was)
@@ -68,16 +68,36 @@ def test_a_lane_stopped_below_the_cap_is_rescued():
         assert torch.equal(a[others], b[others])
 
 
-def test_lanes_that_break_down_are_rescued():
-    """linsolve="inv" in float32 breaks down on two of qpbench's 16 QPs
-    (S^-1 squares the condition number) well before the cap: the call
-    answers them from the float64 re-solve."""
+def breaking_factor(lanes=(3, 11), after=2):
+    """`_factor` with NaN factors for `lanes` of every float32 system from
+    the loop's third pass on (and so in their polish): those lanes break
+    down well before the cap.  Float64 systems (the re-solve's) are
+    factored as they are."""
+    real, calls = qps._factor, [0]
+
+    def factor(S):
+        L = real(S)
+        if S.dtype == F32:
+            calls[0] += 1
+            if calls[0] > after:
+                L = L.clone()
+                L[list(lanes)] = float("nan")
+        return L
+    return factor
+
+
+def test_lanes_that_break_down_are_rescued(monkeypatch):
+    """Two of qpbench's 16 QPs break down in float32 well before the cap:
+    the call answers them from the float64 re-solve."""
     qp, _ = bench_qps(16)
-    d, spec = qps._prepare(*qp, 35, 3e-5, None, "inv")
-    plain = qps._ipm_eager(d, spec, None, "highest")
+    d, spec = qps._prepare(*qp, 35, 3e-5, None)
+    monkeypatch.setattr(qps, "_factor", breaking_factor())
+    plain = qps._ipm_eager(d, spec, None)
     lost = ~plain.converged
     assert bool(lost.any()) and bool((plain.iterations[lost] < 35).all())
-    sol = qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5, linsolve="inv")
+    monkeypatch.setattr(qps, "_factor", breaking_factor())
+    sol = qps.solve_mpc_qp(*qp, max_iters=35, tol=3e-5)
+    monkeypatch.undo()
     assert bool(sol.converged.all())
     assert bool((sol.iterations[lost] > plain.iterations[lost]).all())
     assert torch.equal(sol.u[~lost], plain.u[~lost])
@@ -88,14 +108,14 @@ def test_lanes_that_break_down_are_rescued():
 
 def test_a_lane_at_the_cap_keeps_its_answer():
     qp, theta = bench_qps(4)
-    d, spec = qps._prepare(*qp, 60, 3e-5, theta, "chol")
-    sol = qps._ipm_eager(d, spec, None, "highest")
+    d, spec = qps._prepare(*qp, 60, 3e-5, theta)
+    sol = qps._ipm_eager(d, spec, None)
     fake = sol._replace(converged=torch.zeros_like(sol.converged),
                         iterations=torch.full_like(sol.iterations, 60))
-    assert qps._rescue(d, spec, fake, "chol") is fake
+    assert qps._rescue(d, spec, fake) is fake
     capped = qps.solve_mpc_qp(*qp, max_iters=1, tol=3e-5, box_theta=theta)
-    d1, spec1 = qps._prepare(*qp, 1, 3e-5, theta, "chol")
-    eager = qps._ipm_eager(d1, spec1, None, "highest")
+    d1, spec1 = qps._prepare(*qp, 1, 3e-5, theta)
+    eager = qps._ipm_eager(d1, spec1, None)
     assert not bool(capped.converged.any())
     for a, b in zip(capped[:-1], eager[:-1]):
         assert torch.equal(a, b)
@@ -109,31 +129,53 @@ def test_float64_is_never_rescued(monkeypatch):
     assert not calls and not bool(sol.converged.all())
 
 
-def test_graph_key_holds_what_changes_the_captured_work(monkeypatch):
+def _with_tf32(key):
+    """`key()` with TF32 turned on for the whole process, then off."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        return key()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+# Each thing the key tells apart, as a change to the base call: other data
+# (the same key), then the spec's numbers, dense G_u, per-lane P_uu, the
+# batch size, float64, the pass the solve runs and the process's TF32.
+KEY_CASES = {
+    "other_data": (dict(seed=1), True),
+    "max_iters": (dict(iters=35), False),
+    "tol": (dict(tol=1e-5), False),
+    "dense": (dict(box=False), False),
+    "per_lane_P_uu": (dict(per_lane=True), False),
+    "batch": (dict(batch=5), False),
+    "float64": (dict(dtype=F64), False),
+    "pass": (dict(fused=True), False),
+    "tf32": (dict(tf32=True), False),
+}
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_graph_key_holds_what_changes_the_captured_work(monkeypatch, case):
     """The key of the CUDA graphs (computed from metadata alone, so on the
     CPU too): equal for the same shapes and settings with other data,
     different for each setting the captured work depends on."""
-    qp, theta = bench_qps(4)
-    other, _ = bench_qps(4, seed=1)
+    def key(seed=0, iters=60, tol=3e-5, box=True, per_lane=False, batch=4,
+            dtype=F32, fused=False, tf32=False):
+        qp, theta = bench_qps(batch, dtype, seed)
+        if per_lane:
+            qp = [qp[0].expand(batch, -1, -1).contiguous(), *qp[1:]]
+        d, spec = qps._prepare(*qp, iters, tol, theta if box else None)
+        with monkeypatch.context() as m:
+            m.setattr(qps, "use_fused_pass", lambda *a: fused)
+            step = qps._pass_of(d)
+        if tf32:
+            return _with_tf32(lambda: qps._graph_key(d, spec, step))
+        return qps._graph_key(d, spec, step)
 
-    def key(qp=qp, iters=60, tol=3e-5, box=theta, lin="chol",
-            prec="highest"):
-        d, spec = qps._prepare(*qp, iters, tol, box, lin)
-        return qps._graph_key(d, spec, prec)
-
-    base = key()
-    assert key(qp=other) == base
-    per_lane = [qp[0].expand(4, -1, -1).contiguous(), *qp[1:]]
-    variants = [key(iters=35), key(tol=1e-5), key(box=None), key(lin="inv"),
-                key(prec="high"), key(qp=per_lane), key(qp=bench_qps(5)[0]),
-                key(qp=bench_qps(4, F64)[0], box=theta.to(F64))]
-    assert all(v != base for v in variants)
-    assert len(set(variants)) == len(variants)
-    with qpbench.variant("pref0"):
-        assert key() != base
-    assert key() == base
-    monkeypatch.setattr(qps, "_polish", qpbench._no_polish)
-    assert key() != base
+    change, equal = KEY_CASES[case]
+    assert (key(**change) == key()) is equal
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 @pytest.fixture(scope="module")

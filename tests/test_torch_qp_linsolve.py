@@ -1,12 +1,12 @@
-"""PyTorch port: `solve_mpc_qp(linsolve=..., ipm_precision=...)` against
-"chol" and the JAX solver on the same numpy instances
-(tests/test_qp_structured.py's), the dispatch of "inv"'s S^-1 solve at
-horizons 31 and 33, the argument errors, and the process-wide TF32 state.
+"""PyTorch port: `solve_mpc_qp`, the port's one solve (one Cholesky
+factorisation and two solves a pass), against the JAX solver's S^-1
+route ("inv") and its three matmul precision settings on the same numpy
+instances (tests/test_qp_structured.py's), the dispatch of the Newton
+solves at horizons 31 and 33, and the process-wide TF32 state.
 
-Tolerances: against the JAX `linsolve="inv"` solve, controls to 1e-6 in
-float64 and 1e-4 in float32; inv against chol, the JAX test's 3e-4 in the
-controls and 1e-5 in the objective (float64).  On the CPU the three
-`ipm_precision` settings are bit-equal (nothing global is touched).
+Tolerances: controls (and slacks) to 1e-6 in float64 and 1e-4 in
+float32.  On the CPU the JAX solver's precision settings are bit-equal
+(XLA:CPU computes full float32 whatever the setting).
 """
 
 import jax
@@ -64,43 +64,40 @@ def _j_args(data, jdt=jnp.float64):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_inv_matches_chol_and_the_jax_inv_solve(seed):
+    """The port's solve against the JAX solver's S^-1 route, float64."""
     data = _instance(seed)
-    chol = qps.solve_mpc_qp(*_t_args(data))
-    inv = qps.solve_mpc_qp(*_t_args(data), linsolve="inv")
+    sol = qps.solve_mpc_qp(*_t_args(data))
     jinv = j_solve(*_j_args(data), linsolve="inv")
-    assert bool(chol.converged) and bool(inv.converged)
-    assert bool(jinv.converged)
-    # The JAX test's bounds, inv against chol.
-    np.testing.assert_allclose(inv.u.numpy(), chol.u.numpy(), atol=3e-4)
-    assert float(inv.obj) == pytest.approx(float(chol.obj), abs=1e-5)
-    # Against the JAX solver's own inv path.
-    np.testing.assert_allclose(inv.u[0].numpy(), np.asarray(jinv.u),
+    assert bool(sol.converged) and bool(jinv.converged)
+    np.testing.assert_allclose(sol.u[0].numpy(), np.asarray(jinv.u),
                                atol=1e-6)
-    np.testing.assert_allclose(inv.s[0].numpy(), np.asarray(jinv.s),
+    np.testing.assert_allclose(sol.s[0].numpy(), np.asarray(jinv.s),
                                atol=1e-6)
+    assert float(sol.obj) == pytest.approx(float(jinv.obj), abs=1e-5)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_inv_float32_matches_the_jax_inv_solve(seed):
     data = _instance(seed)
-    inv = qps.solve_mpc_qp(*_t_args(data, F32), linsolve="inv")
+    sol = qps.solve_mpc_qp(*_t_args(data, F32))
     jinv = j_solve(*_j_args(data, jnp.float32), linsolve="inv")
-    assert bool(inv.converged) and bool(jinv.converged)
-    np.testing.assert_allclose(inv.u[0].numpy(), np.asarray(jinv.u),
+    assert bool(sol.converged) and bool(jinv.converged)
+    np.testing.assert_allclose(sol.u[0].numpy(), np.asarray(jinv.u),
                                atol=1e-4)
 
 
 @pytest.mark.parametrize("seed", [0, 4])
 def test_inv_with_box_theta(seed):
+    """The box structure (box_theta) against the dense G_u and against
+    the JAX solver's S^-1 route with box_theta."""
     data, T = _box_instance(seed)
     args = _t_args(data)
     dense = qps.solve_mpc_qp(*args)
-    inv = qps.solve_mpc_qp(*args, linsolve="inv",
-                           box_theta=torch.as_tensor(T))
+    box = qps.solve_mpc_qp(*args, box_theta=torch.as_tensor(T))
     jinv = j_solve(*_j_args(data), linsolve="inv", box_theta=jnp.asarray(T))
-    assert bool(dense.converged) and bool(inv.converged)
-    np.testing.assert_allclose(inv.u.numpy(), dense.u.numpy(), atol=1e-6)
-    np.testing.assert_allclose(inv.u[0].numpy(), np.asarray(jinv.u),
+    assert bool(dense.converged) and bool(box.converged)
+    np.testing.assert_allclose(box.u.numpy(), dense.u.numpy(), atol=1e-6)
+    np.testing.assert_allclose(box.u[0].numpy(), np.asarray(jinv.u),
                                atol=1e-6)
 
 
@@ -119,13 +116,22 @@ def _mpc_qps(horizon, batch=3, dtype=F64):
     return qpbench.assemble(prob, x0, x_ref, hs_h, hs_g)
 
 
+def _j_vmapped(qp, **kwargs):
+    """The JAX solver under vmap on the port's batched float64 QPs."""
+    P, q, G, h1, A, b, pss, qs = qp
+    solve = jax.vmap(lambda qq, hh, aa, bb: j_solve(
+        jnp.asarray(P.numpy()), qq, jnp.asarray(G.numpy()), hh, aa, bb,
+        pss, qs, **kwargs))
+    return solve(*(jnp.asarray(t.numpy()) for t in (q, h1, A, b)))
+
+
 @pytest.mark.parametrize("horizon,to_kernel", [(31, True), (33, False)])
 def test_inv_dispatch_at_long_horizons(monkeypatch, horizon, to_kernel):
-    """S^-1 is one solve with n = 2 H right-hand sides through `_solve`:
-    float32 n = 62 goes to the kernel wrapper, n = 66 to the plain
-    version (what the kernels take decides, as for every other solve);
-    in float64 inv and chol agree.  Only the float32 solves are looked
-    at: a lane rescued in float64 runs its S^-1 on the plain version."""
+    """The Newton solves (n = 2 H, one right-hand side) go through
+    `_solve`: float32 n = 62 to the kernel wrapper, n = 66 to the plain
+    version (what the kernels take decides); in float64 the solve agrees
+    with the JAX solver's S^-1 route.  Only the float32 solves are looked
+    at: a lane rescued in float64 runs on the plain version."""
     seen = []
     for name in ("batched_cho_solve", "batched_cho_solve_plain"):
         real = getattr(qps, name)
@@ -139,44 +145,35 @@ def test_inv_dispatch_at_long_horizons(monkeypatch, horizon, to_kernel):
         monkeypatch.setattr(qps, name, spy)
     n = 2 * horizon
     sol = qps.solve_mpc_qp(*_mpc_qps(horizon, dtype=F32), max_iters=35,
-                           tol=3e-5, linsolve="inv")
+                           tol=3e-5)
     assert bool(torch.isfinite(sol.u).all())
     want = "batched_cho_solve" if to_kernel else "batched_cho_solve_plain"
-    inv_solves = [call for call in seen if call[1:] == (n, n)]
-    assert inv_solves and {call[0] for call in inv_solves} == {want}
+    newton = [call for call in seen if call[1:] == (n, 1)]
+    assert newton and {call[0] for call in newton} == {want}
 
     qp64 = _mpc_qps(horizon)
-    chol = qps.solve_mpc_qp(*qp64)
-    inv = qps.solve_mpc_qp(*qp64, linsolve="inv")
-    assert bool(chol.converged.all()) and bool(inv.converged.all())
-    torch.testing.assert_close(inv.u, chol.u, rtol=0, atol=1e-6)
+    sol64 = qps.solve_mpc_qp(*qp64)
+    jinv = _j_vmapped(qp64, linsolve="inv")
+    assert bool(sol64.converged.all()) and bool(np.all(jinv.converged))
+    np.testing.assert_allclose(sol64.u.numpy(), np.asarray(jinv.u),
+                               atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs", [{"linsolve": "lu"}, {"linsolve": "Chol"},
-                                    {"ipm_precision": "medium"},
-                                    {"ipm_precision": "HIGHEST"}])
-def test_unknown_settings_raise(kwargs):
-    with pytest.raises(ValueError, match=next(iter(kwargs))):
-        qps.solve_mpc_qp(*_t_args(_instance(0)), **kwargs)
-
-
+@pytest.mark.parametrize("prec", ["highest", "high", "default"])
 @pytest.mark.parametrize("dtype", [F32, F64])
-def test_precision_settings_bit_equal_on_the_cpu(dtype):
-    args = _t_args(_instance(1), dtype)
-    plain = qps.solve_mpc_qp(*args)
-    for prec in qps.IPM_PRECISIONS:
-        sol = qps.solve_mpc_qp(*args, ipm_precision=prec)
-        for a, b in zip(plain[:-1], sol[:-1]):
-            assert torch.equal(a, b)
-
-
-def test_defaults_are_chol_and_highest():
-    args = _t_args(_instance(2), F32)
-    plain = qps.solve_mpc_qp(*args)
-    explicit = qps.solve_mpc_qp(*args, linsolve="chol",
-                                ipm_precision="highest")
-    for a, b in zip(plain[:-1], explicit[:-1]):
-        assert torch.equal(a, b)
+def test_precision_settings_bit_equal_on_the_cpu(dtype, prec):
+    """The port's solve against the JAX solver at each of its matmul
+    precision settings, which are bit-equal to each other on the CPU."""
+    data = _instance(1)
+    jdt, atol = (jnp.float32, 1e-4) if dtype == F32 else (jnp.float64, 1e-6)
+    sol = qps.solve_mpc_qp(*_t_args(data, dtype))
+    jsol = j_solve(*_j_args(data, jdt), ipm_precision=prec)
+    highest = j_solve(*_j_args(data, jdt))
+    for a, b in zip(jsol[:-1], highest[:-1]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert bool(sol.converged) and bool(jsol.converged)
+    np.testing.assert_allclose(sol.u[0].numpy(), np.asarray(jsol.u),
+                               atol=atol)
 
 
 def _tf32_state():
@@ -195,40 +192,17 @@ def test_the_cpu_touches_no_global_state():
 
     qps._factor = spy
     try:
-        qps.solve_mpc_qp(*_t_args(_instance(0), F32), ipm_precision="high")
+        qps.solve_mpc_qp(*_t_args(_instance(0), F32))
     finally:
         qps._factor = real
     assert set(seen) == {before} and _tf32_state() == before
 
 
-@pytest.mark.parametrize("prec", ["high", "default"])
-def test_loop_precision_on_a_card_restores_the_pinned_state(prec):
-    """The context the loop runs in, as on a CUDA tensor: TF32 allowed
-    inside, the pinned state back after, also when the loop raises."""
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    pinned = _tf32_state()
-    with qps._loop_precision(prec, F32, "cuda"):
-        assert _tf32_state() == (True, "high")
-    assert _tf32_state() == pinned
-    with pytest.raises(RuntimeError, match="in the loop"):
-        with qps._loop_precision(prec, F32, "cuda"):
-            raise RuntimeError("in the loop")
-    assert _tf32_state() == pinned
-    for args in (("highest", F32, "cuda"), (prec, F64, "cuda"),
-                 (prec, F32, "cpu")):
-        with qps._loop_precision(*args):
-            assert _tf32_state() == pinned
-
-
 def test_inv_matches_the_jax_inv_solve_on_a_vmapped_batch():
     """A batch of the bench's QPs (H = 30, n = 60) in float64 against the
-    JAX solver's inv path under vmap."""
-    P, q, G, h1, A, b, pss, qs = _mpc_qps(30, batch=4)
-    inv = qps.solve_mpc_qp(P, q, G, h1, A, b, pss, qs, linsolve="inv")
-    solve = jax.vmap(lambda qq, hh, aa, bb: j_solve(
-        jnp.asarray(P.numpy()), qq, jnp.asarray(G.numpy()), hh, aa, bb,
-        pss, qs, linsolve="inv"))
-    jinv = solve(*(jnp.asarray(t.numpy()) for t in (q, h1, A, b)))
-    assert bool(inv.converged.all()) and bool(np.all(jinv.converged))
-    np.testing.assert_allclose(inv.u.numpy(), np.asarray(jinv.u), atol=1e-6)
+    JAX solver's S^-1 route under vmap."""
+    qp = _mpc_qps(30, batch=4)
+    sol = qps.solve_mpc_qp(*qp)
+    jinv = _j_vmapped(qp, linsolve="inv")
+    assert bool(sol.converged.all()) and bool(np.all(jinv.converged))
+    np.testing.assert_allclose(sol.u.numpy(), np.asarray(jinv.u), atol=1e-6)
