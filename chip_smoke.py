@@ -28,7 +28,9 @@ is non-zero):
      positive definite and the systems of a real IPM run; the kernel
      benchmark's variants also on a grid of N across both of their
      paths; then the kernel benchmark's attribution lines (launch counts
-     from 0);
+     from 0); then the draw kernel on a head_on_n20 study (300 runs) and
+     a 1,024-run chunk, bit-equal to the loop of one card generator a run
+     from the same seeds, as a CUDA graph of launches against the loop;
   4. seeded end to end: the reference's seed-42 streams (N = 20);
   5. the batch run, with its launch counts, checks and wall time; then
      the IPM pass's three fused kernels on its 768 QPs (n = 60, 60 box
@@ -46,8 +48,9 @@ is non-zero):
      single and Monte Carlo mode, 49,153 samples a row, horizons 31 and
      40;
   8. the entry points: Monte Carlo (twice from one seed, launch counts
-     from 0, a CPU float64 re-run of its first runs) and the timing
-     sweep;
+     from 0, one draw kernel launch a chunk, a CPU float64 re-run of its
+     first runs on the same draws, which phase 3 holds to the loop's) and
+     the timing sweep;
   9. parallel/ and the generic solvers, counts from 0 before each drive:
      `[mesh]` the CLI's Monte Carlo with --mesh data=1 in this process on
      NCCL (equal to phase 8's run, one collective), the timing sweep's
@@ -69,7 +72,9 @@ The line before the last is the kernels' JSON record (for every kernel
 but `minimal_planes` `ms` is the device time as a CUDA graph of launches
 and, for kernels 1-7, `wrapper_ms` the time launch by launch; the solve's
 top-level numbers are k = 1's and `k65` holds k = 65's; kernels 1-3 also
-list the launches of phases 9 and 10's paths); the last line is
+list the launches of phases 9 and 10's paths; the draw kernel's
+`launches` are phase 8's, its `plain_ms` the loop's host-bound time); the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -98,6 +103,8 @@ LINALG_RESIDUAL = 64 * 2.0 ** -24   # n eps: a backward-stable n <= 64 solve
 BATCH = dict(scenarios=256, n_samples=1000, sim_time=6.0, qp_iters=35,
              qp_tol=3e-5, seed=0, recheck=8)
 MC = dict(runs=300, recheck=8, tol=1e-3)
+# Phase 3: the draw kernel on mc300's study and on a whole default chunk.
+DRAWS = dict(studies=((42, 300), (7, 1024)), reps=3)
 CHUNKED = dict(qps=2048, chunk=512)   # filter_core_batched against flat
 # Phase 9: Monte Carlo over two ranks sharing the card (Gloo), its float64
 # check, the sample-parallel solve at the JAX module's N >> 1e5 setting,
@@ -733,6 +740,59 @@ def phase_kernels(pt, torch, dev, streams):
     return record
 
 
+def phase_draws(pt, torch, dev) -> dict:
+    """3b. The draw kernel on the custom preset's head_on (one obstacle,
+    20 samples, 151 steps): a 300-run study and a 1,024-run chunk from
+    their run seeds, every output bit-equal to the loop of one card
+    generator a run (`draw_runs_loop`) and drawn in one launch; timed as
+    a CUDA graph of launches, launch by launch, and the loop (host-bound:
+    one generator and ~5 launches a run).  Returns the kernel's entry of
+    the record, at the study's size."""
+    obs_mod, mc = pt.simulation.obstacles, pt.evaluation.monte_carlo
+    draws = pt.ops.cuda_draws.obstacle_draws
+    params = pt.config.get_parameters("custom")
+    scenario = pt.config.get_scenario_config("head_on")
+    f32 = dict(dtype=torch.float32, device=dev)
+    starts, directions, speeds = (torch.as_tensor(v, **f32) for v in (
+        scenario.obstacle_starts, scenario.obstacle_directions,
+        scenario.obstacle_speeds))
+    n_steps = int(params.sim_time / params.dt)
+    entry = None
+    for seed, runs in DRAWS["studies"]:
+        seeds = mc.run_seeds(seed, runs)
+        args = (seeds, starts, directions, speeds, n_steps, params.dt,
+                params.num_samples, params.noise_var)
+        before = draws.launches
+        got = obs_mod.draw_runs_kernel(*args)
+        gate(draws.launches - before == 1,
+             f"[draws] {runs} runs: {draws.launches - before} launches")
+        want = obs_mod.draw_runs_loop(*args)
+        for name, a, b in zip(got._fields, got, want):
+            gate(a.shape == b.shape and torch.equal(
+                a.view(torch.int32), b.view(torch.int32)),
+                f"[draws] {runs} runs: {name} differs from the loop's")
+        nominal = obs_mod.generate_nominal_trajectories(
+            starts, directions, speeds, n_steps, params.dt)
+        seeds_t = torch.tensor(seeds, dtype=torch.int64, device=dev)
+        graph_ms, wrapper_ms, loop_ms = graph_and_wrapper_ms(
+            pt, lambda: obs_mod.draw_runs_loop(*args),
+            lambda: draws(nominal, seeds_t, params.num_samples,
+                          params.noise_var), DRAWS["reps"])
+        bound, by = pt.experiments.linalg_bench.roofline_ms(
+            tensor_bytes(nominal, seeds_t, *got), 0)
+        print(f"[draws] head_on, {runs} runs x {params.num_samples} samples "
+              f"x {n_steps + 1} steps: one launch, nominal, samples and "
+              f"realization bit-equal to the loop's; {graph_ms:.4f} ms as a "
+              f"CUDA graph of launches ({wrapper_ms:.4f} ms launch by "
+              f"launch), the loop {loop_ms:.2f} ms; bound {bound:.4f} ms by "
+              f"{by} ({tensor_bytes(*got) / 1e6:.2f} MB written)")
+        if entry is None:
+            entry = dict(max_abs_err=0.0, ms=graph_ms, plain_ms=loop_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None,
+                         wrapper_ms=wrapper_ms, runs=runs)
+    return entry
+
+
 def drive_kbench(pt, torch):
     """The kernel benchmark's path: counts from 0, every variant once
     through `experiments.kbench.measure`; returns the launch counts."""
@@ -791,10 +851,12 @@ def phase_e2e(pt, torch, dev, streams):
 
 
 def path_kernels(pt):
-    """The wrappers of kernels 1-3, whose counters the paths are held to."""
+    """The wrappers of kernels 1-3 and of the draw kernel, whose counters
+    the paths are held to."""
     return (pt.ops.cuda_kernels.all_metrics_halfspaces,
             pt.ops.cuda_linalg.batched_cholesky,
-            pt.ops.cuda_linalg.batched_cho_solve)
+            pt.ops.cuda_linalg.batched_cho_solve,
+            pt.ops.cuda_draws.obstacle_draws)
 
 
 def reset_launches(pt) -> None:
@@ -1274,6 +1336,8 @@ def phase_entry_points(pt, torch, dev, card):
             launches = read_launches(pt)
             gate(min(launches.values()) > 0,
                  f"monte_carlo: a kernel never launched: {launches}")
+            gate(launches["obstacle_draws"] == 1, f"monte_carlo: "
+                 f"{MC['runs']} runs in one chunk, launches {launches}")
             runs.append(res)
         gate((Path(tmp) / "head_on_mc_data.npz").exists(),
              "monte_carlo: head_on_mc_data.npz not written")
@@ -1319,7 +1383,7 @@ def phase_entry_points(pt, torch, dev, card):
         gate(np.isfinite([dr, cvar, setup]).all(), "timing: not finite")
         print(f"[timing] N={n}: solve ms per instance dr_cvar {dr:.6f}, "
               f"cvar {cvar:.6f}, setup {setup:.6f} (50 runs, 20 repeats)")
-    return first
+    return first, launches["obstacle_draws"]
 
 
 def mesh_ranks(rank, world):
@@ -1998,6 +2062,7 @@ def main() -> int:
     # the kernel benchmark's path.
     record = phase_kernels(pt, torch, dev, streams)
     kbench_launches = drive_kbench(pt, torch)
+    record["obstacle_draws"] = phase_draws(pt, torch, dev)
 
     # 4. Seeded end to end.
     held = phase_e2e(pt, torch, dev, streams)
@@ -2022,6 +2087,8 @@ def main() -> int:
     launches = read_launches(pt)
     launches.update({name: getattr(pt.ops.cuda_ipm, name).launches
                      - fused_before[name] for name in FUSED})
+    gate(launches.pop("obstacle_draws") == 0,
+         "batch: the draw kernel launched")
     gate(min(launches.values()) > 0, f"a kernel never launched: {launches}")
     gate(len({launches[name] for name in FUSED}) == 1,
          f"the fused kernels launched unequally: {launches}")
@@ -2077,7 +2144,8 @@ def main() -> int:
     phase_beyond_kernels(pt, torch, dev, streams, card)
 
     # 8. The entry points.
-    mc_plain = phase_entry_points(pt, torch, dev, card)
+    mc_plain, launches["obstacle_draws"] = phase_entry_points(pt, torch,
+                                                              dev, card)
 
     # 9. parallel/ (the mesh, the sample-parallel solve), the generic IPM
     # and the planner.
@@ -2112,6 +2180,8 @@ def main() -> int:
         ("select_rounds", "halfspace_variants.cu", "experiments/kbench.py:388"),
         *((name, "ipm_pass_kernels.cu", "none: the JAX package leaves the "
            "IPM pass to XLA's fusion") for name in FUSED),
+        ("obstacle_draws", "obstacle_draws.cu", "none: the JAX package "
+         "splits one key a run and lets XLA batch the draws"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source + src,

@@ -11,7 +11,9 @@ one key per run up front; here one seed per run is drawn up front from
 `seed` (`run_seeds`, whose first n seeds are the same for any longer
 draw), and each run's obstacle noise comes from its own
 `torch.Generator` seeded with it, so a run draws the same numbers in any
-chunk and on any rank.
+chunk and on any rank.  On a CUDA float32 chunk one kernel launch draws
+all of its runs, bit for bit as their generators would
+(`use_draw_kernel`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 from ..config import DEFAULT_DEVICE, Parameters, Scenario
 from ..models.pipeline import (METRICS, PipelineStatics, ScenarioResult,
                                make_statics, run_scenario_with_obstacles)
-from ..simulation.obstacles import ObstacleData, generate_obstacle_scenarios
+from ..simulation.obstacles import (ObstacleData, draw_runs_kernel,
+                                    draw_runs_loop)
+from ..utils.timing import count
 from .metrics import safety_metrics
 
 
@@ -60,21 +64,35 @@ def run_seeds(seed: int, n_runs: int) -> list[int]:
                          dtype=torch.int64).tolist()
 
 
+def use_draw_kernel(device, dtype) -> bool:
+    """Whether a chunk's draws go to the draw kernel
+    (`simulation/obstacles.py::draw_runs_kernel`): float32 on a CUDA
+    device, where it replays each run's card generator bit for bit.
+    Elsewhere the runs take the loop: the CPU's generator is another
+    algorithm, and float64 `randn` another transform.  Decided from the
+    device and dtype alone."""
+    return torch.device(device).type == "cuda" and dtype == torch.float32
+
+
 def run_obstacles(statics: PipelineStatics, seeds, scenario: Scenario,
                   params: Parameters, n_steps: int) -> ObstacleData:
     """Obstacle draws of the runs with these seeds, stacked on the
-    scenario axis; each run's draw comes from its own generator."""
+    scenario axis; each run's draw is that of its own generator, in one
+    kernel launch or a loop (`use_draw_kernel`).  The recorder counts
+    the runs of each path (`obstacles.kernel_runs`,
+    `obstacles.loop_runs`)."""
     env = statics.env
     as_t = lambda v: torch.as_tensor(v, dtype=env.dtype,   # noqa: E731
                                      device=env.device)
-    starts, directions, speeds = (as_t(v) for v in (
+    args = (seeds, *(as_t(v) for v in (
         scenario.obstacle_starts, scenario.obstacle_directions,
-        scenario.obstacle_speeds))
-    draws = [generate_obstacle_scenarios(
-        torch.Generator(device=env.device).manual_seed(s), starts,
-        directions, speeds, n_steps, env.dt, params.num_samples,
-        params.noise_var, 1) for s in seeds]
-    return ObstacleData(*(torch.cat(parts) for parts in zip(*draws)))
+        scenario.obstacle_speeds)), n_steps, env.dt, params.num_samples,
+        params.noise_var)
+    if use_draw_kernel(env.device, env.dtype):
+        count("obstacles.kernel_runs", len(seeds))
+        return draw_runs_kernel(*args)
+    count("obstacles.loop_runs", len(seeds))
+    return draw_runs_loop(*args)
 
 
 def reduce_runs(result: ScenarioResult):

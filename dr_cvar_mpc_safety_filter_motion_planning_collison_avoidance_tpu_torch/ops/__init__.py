@@ -1,4 +1,5 @@
 from . import halfspace
+from . import cuda_draws
 from . import cuda_ipm
 from . import cuda_kernels
 from . import cuda_linalg

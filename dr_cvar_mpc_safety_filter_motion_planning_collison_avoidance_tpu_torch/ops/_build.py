@@ -46,6 +46,8 @@ _SIGNATURES = {
     "drcvar_ipm_step": [_P] * 3 + [_I] * 4 + [_P],
     "drcvar_ipm_work_floats": [_I] * 3,
     "drcvar_ipm_caps": [_I],
+    "drcvar_obstacle_draws": [_P] * 5 + [_I] * 6 + [ctypes.c_uint64]
+    + [_F] * 2 + [_P],
 }
 
 

@@ -46,9 +46,11 @@ update the state's buffers in place (distinct contiguous copies,
 `_dense`), and `_pass_of` picks one of them once a solve: the graph path
 and the op-by-op path run the same pass on the same buffers.
 
-Rescue: a float32 lane that stops unconverged before `max_iters` (the
-stall rule just above float32's merit floor, or a breakdown) is solved
-again in float64, warm from its float32 iterate, op by op (`_rescue`).
+Rescue: a float32 lane that stops unconverged (the stall rule, a
+breakdown, or the iteration cap) is solved again in float64, warm from
+its float32 iterate, and where that start does not converge it from the
+cold start with one step length for primal and dual variables, op by op
+(`_rescue`).
 
 With the port's recorder on (`utils/timing.py`), each pass and its parts
 are spans (`ipm.pass`; `ipm.residuals`, `ipm.factor`, `ipm.newton` twice,
@@ -58,9 +60,10 @@ are spans (`ipm.pass`; `ipm.residuals`, `ipm.factor`, `ipm.newton` twice,
 active: the readback then reads that number in place of the boolean),
 `ipm.polish_kept` (lanes whose polished iterate is kept, one more
 readback a solve), `ipm.graph_passes` (passes replayed from a graph),
-`ipm.fused_passes` (passes run on the fused kernels), `ipm.rescued` and
-`ipm.rescued_converged`.  On the graph path the pass's
-parts and the polish's inner spans fire only while a graph is captured;
+`ipm.fused_passes` (passes run on the fused kernels), `ipm.rescued`,
+`ipm.rescued_capped`, `ipm.rescued_cold` and `ipm.rescued_converged`.
+On the graph path the pass's parts and the polish's inner spans fire only
+while a graph is captured;
 `ipm.pass` wraps a replay, `ipm.polish` the post-loop replay and
 `ipm.finalize` the copy of its results.  Off, the spans and counters do
 nothing and the loop reads back its boolean.
@@ -249,11 +252,15 @@ class _Data(NamedTuple):
 
 
 class _Spec(NamedTuple):
-    """The numbers of a solve that its device work depends on."""
+    """The numbers of a solve that its device work depends on.
+    `one_step`: primal and dual variables take one step length, the
+    smaller of the two (`_next_state`, so `_pass_of` then takes the plain
+    pass; the rescue's cold float64 start alone sets it)."""
     m_total: int
     reg: float
     tol: float
     max_iters: int
+    one_step: bool = False
 
 
 class _State(NamedTuple):
@@ -442,6 +449,8 @@ def _next_state(d: _Data, spec: _Spec, st: _State) -> _State:
             l3 * w3 + dl3_a * dw3_a - sm)
     with annotate("ipm.step"):
         a_p, a_d = steps(dl1, dl2, dl3, dw1, dw2, dw3, 0.99)
+        if spec.one_step:
+            a_p = a_d = torch.minimum(a_p, a_d)
 
         conv = best_merit_n < tol
         done_n = done | conv | broke | (stall_n >= 10)
@@ -506,11 +515,12 @@ _one_pass.counters = ()
 _fused_pass.counters = ("ipm.fused_passes",)
 
 
-def _pass_of(d: _Data):
+def _pass_of(d: _Data, one_step: bool = False):
     """The pass a prepared solve runs, chosen once a solve from its data's
     metadata: `_fused_pass` where `use_fused_pass` takes it, else
-    `_one_pass`."""
-    fused = use_fused_pass(
+    `_one_pass`; with `one_step` (the solve's `_Spec.one_step`) always
+    `_one_pass`, which alone takes one step length."""
+    fused = not one_step and use_fused_pass(
         d.q_u.device.type, d.q_u.dtype, d.q_u.shape[1], d.b.shape[-1],
         None if d.T is None else d.T.shape[0],
         d.P_uu.dim() == 2 and d.A.dim() == 3)
@@ -561,7 +571,7 @@ def _ipm_eager(d: _Data, spec: _Spec, warm) -> MPCQPSolution:
     """The solve without graphs, pass by pass: the CPU's path and the
     rescue's (op by op), and on the card the graph path's reference (the
     same pass, `_pass_of`'s, on the same buffers)."""
-    step = _pass_of(d)
+    step = _pass_of(d, spec.one_step)
     st = _start(d, spec, warm).dense()
     d = _Data(*_dense(d))
     while _still_active(st.active):
@@ -685,7 +695,7 @@ def _ipm_graphs(d: _Data, spec: _Spec, warm) -> MPCQPSolution:
     at the key's first call.  Passes, iterations and every lane's
     iterates are the eager loop's: the same kernels run in the same
     order, and the loop reads back `active` once a pass as it does."""
-    step = _pass_of(d)
+    step = _pass_of(d, spec.one_step)
     key = _graph_key(d, spec, step)
     st0 = _start(d, spec, warm)
     graphs = _GRAPHS.pop(key, None)
@@ -712,43 +722,72 @@ def _ipm_graphs(d: _Data, spec: _Spec, warm) -> MPCQPSolution:
     return sol
 
 
-def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution) -> MPCQPSolution:
-    """Re-solve in float64 the float32 lanes that stopped unconverged
-    before the iteration cap (the stall rule or a breakdown), warm from
-    their float32 iterates, with the same cap and tolerance; the cold
-    float64 start can stall where the float32 one did.  One readback a
-    call finds none.  A rescued lane's `iterations` is its float32 count
-    plus the re-solve's; lanes at the cap keep their result."""
-    need = ~sol.converged & (sol.iterations < spec.max_iters)
-    if not bool(need.any()):
-        return sol
-    idx = need.nonzero()[:, 0]
+def _lanes64(d: _Data, spec: _Spec, idx):
+    """(_Data, _Spec) of lanes `idx` of a call in float64, with the call's
+    cap and tolerance."""
     f64 = torch.float64
     lanes = lambda t: t[idx].to(f64)                          # noqa: E731
     per_lane = lambda t: (t[idx] if t.dim() == 3 else t).to(f64)  # noqa: E731
+    return _prepare(per_lane(d.P_uu), lanes(d.q_u), per_lane(d.G_u),
+                    lanes(d.h1), lanes(d.A), lanes(d.b), lanes(d.p_ss),
+                    lanes(d.q_s), spec.max_iters, spec.tol,
+                    None if d.T is None else d.T.to(f64))
+
+
+def _rescue(d: _Data, spec: _Spec, sol: MPCQPSolution) -> MPCQPSolution:
+    """Re-solve in float64 the float32 lanes that stopped unconverged (the
+    stall rule, a breakdown or the iteration cap), warm from their float32
+    iterates, with the same cap and tolerance.  The lanes that start
+    leaves unconverged are solved once more from the cold start, with one
+    step length for primal and dual variables (`_Spec.one_step`): with
+    two, the cold start stalls where the float32 one did (the primal
+    steps of u and s enter the dual residual, and on rare QPs the
+    iterates swing until the stall rule stops them).  A
+    lane takes the first re-solve that converges, and its `iterations` is
+    its float32 count plus its re-solves'; a lane neither converges keeps
+    its float32 answer, and with it the caller's fallback.  One readback
+    a call finds none."""
+    need = ~sol.converged
+    if not bool(need.any()):
+        return sol
+    idx = need.nonzero()[:, 0]
+    capped = int((sol.iterations[idx] >= spec.max_iters).sum())
     with annotate("ipm.rescue"):
         was = timing.record(False)
         try:
-            d64, spec64 = _prepare(
-                per_lane(d.P_uu), lanes(d.q_u), per_lane(d.G_u),
-                lanes(d.h1), lanes(d.A), lanes(d.b), lanes(d.p_ss),
-                lanes(d.q_s), spec.max_iters, spec.tol,
-                None if d.T is None else d.T.to(f64))
-            warm = (sol.u, sol.s, *sol.mults)
-            r = _ipm_eager(d64, spec64, tuple(lanes(t) for t in warm))
+            d64, spec64 = _lanes64(d, spec, idx)
+            warm = tuple(t[idx].to(torch.float64)
+                         for t in (sol.u, sol.s, *sol.mults))
+            r = _ipm_eager(d64, spec64, warm)
+            iters = sol.iterations[idx] + r.iterations
+            cold = (~r.converged).nonzero()[:, 0]
+            if cold.numel():
+                d_c, spec_c = _lanes64(d, spec, idx[cold])
+                c = _ipm_eager(d_c, spec_c._replace(one_step=True), None)
+                r = MPCQPSolution(
+                    *(t.index_copy(0, cold, ct) for t, ct in
+                      zip(r[:-1], c[:-1])),
+                    tuple(t.index_copy(0, cold, ct)
+                          for t, ct in zip(r.mults, c.mults)))
+                iters = iters.index_add(0, cold, c.iterations)
         finally:
             timing.record(was)
     timing.count("ipm.rescued", int(idx.numel()))
+    timing.count("ipm.rescued_capped", capped)
+    timing.count("ipm.rescued_cold", int(cold.numel()))
     timing.count("ipm.rescued_converged", int(r.converged.sum()))
+    ok = r.converged
+    if not bool(ok.any()):
+        return sol
+    idx, iters = idx[ok], iters[ok]
 
     def put(old, new):
-        return old.index_copy(0, idx, new.to(old.dtype))
+        return old.index_copy(0, idx, new[ok].to(old.dtype))
 
     fields = {f: put(getattr(sol, f), getattr(r, f))
               for f in ("u", "s", "obj", "gap", "prim_res", "dual_res",
                         "converged", "merit")}
-    fields["iterations"] = put(sol.iterations,
-                               sol.iterations[idx] + r.iterations)
+    fields["iterations"] = sol.iterations.index_copy(0, idx, iters)
     return MPCQPSolution(**fields, mults=tuple(
         put(old, new) for old, new in zip(sol.mults, r.mults)))
 
@@ -786,8 +825,11 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
     On a CUDA tensor the loop's passes and the work after it replay from
     CUDA graphs (`_ipm_graphs`), each pass on the fused kernels where
     `use_fused_pass` takes the solve; on the CPU they run op by op.  Either
-    way a float32 lane that stops unconverged before `max_iters` is
-    solved again in float64 (`_rescue`).
+    way a float32 lane that stops unconverged is solved again in float64
+    (`_rescue`).  `max_iters` caps each attempt, not the call: a lane a
+    re-solve converges reports its float32 count plus the re-solves'
+    (warm, then cold where the warm one did not converge), at most
+    3 x max_iters; any other lane reports its float32 count.
     """
     timing.count("ipm.lanes", q_u.shape[0])
     d, spec = _prepare(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol,

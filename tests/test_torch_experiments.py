@@ -69,7 +69,12 @@ def test_qpbench_every_variant(capsys, results_untouched):
         assert fields["spec"] == spec and fields["batch"] == 8
         assert r["ms"] > 0 and r["k"] == 1
     by_spec = {fields["spec"]: r for fields, r in out}
-    assert by_spec["chol:8:5"]["iters_max"] <= 5
+    # At a cap of 5 every float32 lane stops at the cap, and the rescue's
+    # warm float64 re-solve, capped at 5 too, converges each: 5 and at
+    # most 5 more (test_torch_ipm_rescue.py holds each attempt to the cap).
+    capped = by_spec["chol:8:5"]
+    assert capped["converged"] == 1.0
+    assert 5 < capped["iters_max"] <= 2 * 5
     assert by_spec["chol:8"]["converged"] == 1.0
 
 
