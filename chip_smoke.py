@@ -45,8 +45,9 @@ is non-zero):
      against one flat call, and a warm-started `solve_mpc_qp`;
   7. what the hand kernels do not take, on the card all the same (the
      call sites choose by dtype and shape): `cli --dtype float64` in
-     single and Monte Carlo mode, 49,153 samples a row, horizons 31 and
-     40;
+     single and Monte Carlo mode, 393,217 samples a row, horizons 31 and
+     40; and rows of 49,153 and 100,000 samples, one launch of kernel 1's
+     cluster path each;
   8. the entry points: Monte Carlo (twice from one seed, launch counts
      from 0, one draw kernel launch a chunk, a CPU float64 re-run of its
      first runs on the same draws, which phase 3 holds to the loop's) and
@@ -124,6 +125,10 @@ TIMING_CLI = ["--mode", "timing_analysis", "--sample_sizes", "10,1000",
               "--timing_runs", "5", "--device", "cuda"]
 # The JAX halfspace bench's shapes (bench.py) for the DR-CVaR solve.
 DRCVAR_SHAPES = ((32768, 1000), (8192, 4096), (1, 1000))
+# Kernel 1's cluster path: the rows of a call of the benchmark's
+# paper_multi_obstacle_n49153.halfspaces128 cell (128 x 26 x 3 rows of
+# 49,153), and the sample-parallel solve's row length.
+CLUSTER_SHAPES = ((9984, 49153), (1024, 100_000))
 # Operation counts a sample for the halfspace kernels' bounds (all of
 # them are bound by bytes: these are 5-10 times below).
 FLOPS_PER_SAMPLE, FLOPS_PER_SAMPLE_READ_ONLY, SELECT_OPS_PER_PASS = 16, 4, 4
@@ -476,6 +481,42 @@ def phase_linalg(pt, torch, dev, streams, gen):
     return entries
 
 
+def phase_cluster(pt, torch, dev, gen) -> dict:
+    """Kernel 1's cluster path at CLUSTER_SHAPES against its plain
+    version, with its time as a CUDA graph of launches and launch by
+    launch, its bound and the plain version's time; the select alone
+    bit-equal to torch.kthvalue on the same rows' first 64."""
+    ck = pt.ops.cuda_kernels
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {}
+    for B, N in CLUSTER_SHAPES:
+        x = 2.0 + 0.1 * torch.randn(B, N, 2, generator=gen, **f32)
+        e = torch.randn(B, 2, generator=gen, **f32)
+        plan = ck.halfspace_plan(B, N, x.data_ptr() % 16 == 0)
+        gate(plan.entry == "cluster", f"B={B} N={N}: plan {plan}")
+        err = check_halfspaces(ck, x, e, ARGS[0], f"cluster B={B} N={N}")
+        k_ms, w_ms, p_ms = graph_and_wrapper_ms(
+            pt, lambda: ck.all_metrics_halfspaces_plain(x, e, *ARGS),
+            lambda: ck.all_metrics_halfspaces(x, e, *ARGS), reps=3)
+        entry = halfspace_entry(pt, err, k_ms, p_ms, (x, e, *ck.all_metrics_halfspaces(
+            x, e, *ARGS)), FLOPS_PER_SAMPLE, 4, w_ms)
+        proj = x[:64, :, 0].contiguous()
+        k = pt.core.risk.cvar_k(N, ARGS[0])
+        gate(torch.equal(ck.kth_largest(proj, k),
+                         torch.kthvalue(proj, N - k + 1, dim=-1).values),
+             f"cluster select N={N}: k-th value not bit-equal")
+        out[f"{B}x{N}"] = entry
+        print(f"[kernels] all_metrics_halfspaces B={B} N={N} runs as {plan}: "
+              f"max_abs_err {err:.3e}, {k_ms:.4f} ms as a CUDA graph of "
+              f"launches, {w_ms:.4f} ms launch by launch (plain {p_ms:.4f} "
+              f"ms); bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+              f"{100 * entry['bound_ms'] / k_ms:.1f}% of it; the select "
+              f"bit-equal to torch.kthvalue")
+        del x, e, proj
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(pt, torch, dev, streams):
     """Every kernel against its plain version; returns, per kernel of the
     path, (max_abs_err, kernel ms, plain ms) at the main path's shape."""
@@ -595,6 +636,8 @@ def phase_kernels(pt, torch, dev, streams):
     print("[kernels] all_metrics_halfspaces: N=20, Monte Carlo's rows, "
           "N=1024 / 1025, odd N, ragged B/N and the six adversarial cases "
           "within h 1e-5, g 2e-4 + 1e-5 rel; a misaligned view bit-equal")
+    record["all_metrics_halfspaces"]["cluster"] = phase_cluster(pt, torch,
+                                                                dev, gen)
 
     record.update(phase_linalg(pt, torch, dev, streams, gen))
 
@@ -1208,39 +1251,51 @@ def phase_beyond_kernels(pt, torch, dev, streams, card):
           f"CPU float64 (gate 1e-6); launches {read_launches(pt)}: float64 "
           f"takes the closed forms and the plain factorisations on the card")
 
-    # 49,153 samples a row, float32: one scenario, one obstacle, 8 steps.
+    # Rows past the block path, float32: one scenario, one obstacle, 8
+    # steps.  49,153 and 100,000 samples take kernel 1's cluster path
+    # (2 and 3 blocks a row) in one launch; 393,217, one more than the
+    # cluster path takes, the closed forms with no launch.
     ck = pt.ops.cuda_kernels
     scenario = pt.config.get_scenario_config("head_on")
-    n_big, n_steps = ck.MAX_N_SAMPLES + 1, 7
+    n_steps = 7
     statics = pt.models.make_statics(scenario, params, f32, dev)
-    obs = pt.simulation.generate_obstacle_scenarios(
-        torch.Generator(device=dev).manual_seed(5),
-        *(torch.as_tensor(v, dtype=f32, device=dev)
-          for v in (scenario.obstacle_starts, scenario.obstacle_directions,
-                    scenario.obstacle_speeds)),
-        n_steps, params.dt, n_big, params.noise_var, 1)
-    x_ref = pt.models.straight_line_trajectory(
-        statics.planner, *(torch.as_tensor(v, dtype=f32, device=dev)[None]
-                           for v in (scenario.ego_start, scenario.ego_goal)),
-        params.ego_velocity)[0]
-    reset_launches(pt)
-    hs = pt.simulation.compute_safe_halfspaces_for_trajectory(
-        statics.env, obs.samples, x_ref)
-    gate_launched(pt, (), f"N = {n_big}")
-    ref = pt.simulation.compute_safe_halfspaces_for_trajectory(
-        pt.models.make_statics(scenario, params, f64, "cpu").env,
-        obs.samples.cpu().double(), x_ref.cpu().double())
-    gate(hs.mean.h.shape == (1, n_steps + 1, 1, 2), f"N = {n_big}: shape")
-    err = 0.0
-    for m in pt.models.METRICS:
-        ours, want = hs.by_metric(m), ref.by_metric(m)
-        err = max(err, check_hg((ours.h.cpu().double(),
-                                 ours.g_tilde.cpu().double()),
-                                (want.h, want.g_tilde), f"N = {n_big} {m}"))
-    print(f"[bigN] N = {n_big} samples a row (1 obstacle, {n_steps + 1} "
-          f"steps), float32 on the card: the closed forms, no kernel launch; "
-          f"max abs err {err:.3e} from CPU float64 (h {H_TOL}, g {G_ATOL} + "
-          f"{G_RTOL} rel)")
+    env64 = pt.models.make_statics(scenario, params, f64, "cpu").env
+    for n_big, launches in ((ck.BLOCK_MAX_N + 1, 1), (100_000, 1),
+                            (ck.MAX_N_SAMPLES + 1, 0)):
+        obs = pt.simulation.generate_obstacle_scenarios(
+            torch.Generator(device=dev).manual_seed(5),
+            *(torch.as_tensor(v, dtype=f32, device=dev)
+              for v in (scenario.obstacle_starts, scenario.obstacle_directions,
+                        scenario.obstacle_speeds)),
+            n_steps, params.dt, n_big, params.noise_var, 1)
+        x_ref = pt.models.straight_line_trajectory(
+            statics.planner, *(torch.as_tensor(v, dtype=f32, device=dev)[None]
+                               for v in (scenario.ego_start, scenario.ego_goal)),
+            params.ego_velocity)[0]
+        reset_launches(pt)
+        hs = pt.simulation.compute_safe_halfspaces_for_trajectory(
+            statics.env, obs.samples, x_ref)
+        torch.cuda.synchronize()
+        got = gate_launched(pt, ("all_metrics_halfspaces",) if launches else (),
+                            f"N = {n_big}")
+        gate(got["all_metrics_halfspaces"] == launches,
+             f"N = {n_big}: launches {got}, expected {launches} of kernel 1")
+        ref = pt.simulation.compute_safe_halfspaces_for_trajectory(
+            env64, obs.samples.cpu().double(), x_ref.cpu().double())
+        gate(hs.mean.h.shape == (1, n_steps + 1, 1, 2), f"N = {n_big}: shape")
+        err = 0.0
+        for m in pt.models.METRICS:
+            ours, want = hs.by_metric(m), ref.by_metric(m)
+            err = max(err, check_hg((ours.h.cpu().double(),
+                                     ours.g_tilde.cpu().double()),
+                                    (want.h, want.g_tilde), f"N = {n_big} {m}"))
+        path = (f"kernel 1's cluster path ({ck.halfspace_plan(1, n_big, True).cluster} "
+                f"blocks a row), {launches} launch" if launches
+                else "the closed forms, no kernel launch")
+        print(f"[bigN] N = {n_big} samples a row (1 obstacle, {n_steps + 1} "
+              f"steps), float32 on the card: {path}; max abs err {err:.3e} "
+              f"from CPU float64 (h {H_TOL}, g {G_ATOL} + {G_RTOL} rel)")
+        del obs, hs, ref
 
     # Horizons 31 and 40 in float32 at N = 1000.  head_on on the seed-42
     # streams is held to CPU float64 at the oracle's tolerance.

@@ -94,7 +94,8 @@ def _launcher(lib, all_metrics: bool, plan, samples, ego, outs):
     B, N = samples.shape[:2]
     alpha, delta, epsilon, r_robot, r_obstacle = ARGS
     ints = (B, N, cvar_k(N, alpha)) + (() if plan is None else (
-        plan.values_per_lane, plan.rows_per_block, plan.load_bytes))
+        plan.values_per_lane, plan.rows_per_block, plan.load_bytes,
+        plan.cluster))
     if all_metrics:
         fn, what = lib.drcvar_all_metrics_halfspaces, "all_metrics_halfspaces"
         args = (samples.data_ptr(), ego.data_ptr(),

@@ -67,10 +67,33 @@
 //     (halfspace_variants.cu) instantiate the same stages with one of
 //     them swapped, so their times say where this kernel's time goes.
 //
-// Rows of more than 1024 samples (up to 49152, the block path) keep one
-// 256-thread block a row with the projections in shared memory and the
-// block-wide 4-pass select of halfspace_common.cuh: there the block's
-// fixed cost is spread over 4 or more times the samples.
+// Three paths, by the row's length N (ops/cuda_kernels.py
+// `halfspace_plan`):
+//
+//   * N <= 1024, the warp path above.
+//   * 1024 < N <= 49152, the block path: one 256-thread block a row with
+//     the projections in shared memory and the block-wide 4-pass select
+//     of halfspace_common.cuh; there the block's fixed cost is spread
+//     over 4 or more times the samples.
+//   * 49152 < N <= 393216, the cluster path: one thread-block cluster of
+//     c = ceil(N / 49152) such blocks a row (2 ... 8, the portable
+//     cluster size), block r holding the projections of the row's r-th
+//     slice of ceil(N / c) samples in its own shared memory (one block's
+//     227 KB holds some 58,000 floats, and a row may be longer).  The
+//     stages are the block path's on the slice; the row's sums (the
+//     centred mean, the tail's sum and count) are each block's reduced in
+//     a fixed order and then added over the cluster in rank order through
+//     distributed shared memory, and each select pass adds the c blocks'
+//     histograms the same way, so every block holds the same bits and
+//     picks the same bin.  Block rank 0 writes the outputs.  Like the
+//     block path a block reads its slice twice (the sums, then the
+//     projections), the second time mostly from L2.  A launch is refused
+//     where no such cluster fits on the card (cudaOccupancyMaxActiveClusters
+//     is 0), before the first launch at each cluster size and shared
+//     memory.
+//
+// Offsets into the samples are 64-bit: rows x N x 2 floats passes 2^31
+// at the cluster path's sizes.
 //
 // Samples are read as [B, N, 2] float2 directly: the TPU's SoA planes
 // and its 128-lane / row-tile padding are layout, not contract.
@@ -203,6 +226,67 @@ halfspace_block_kernel(const float2* __restrict__ samples,
                            r.mx, r.my, sum_g, size_g, v);
 }
 
+// The cluster path: 49152 < N, one cluster of c 256-thread blocks a row
+// (blockIdx.x / c), block rank r the samples [r slice, min((r + 1) slice,
+// N)) with their projections in its shared memory; the block path's
+// stages on the slice, the sums and histograms added over the cluster.
+template <bool kAllMetrics>
+__global__ void __launch_bounds__(kThreads)
+halfspace_cluster_kernel(const float2* __restrict__ samples,
+                         const float2* __restrict__ ego,
+                         float2* __restrict__ h_mean,
+                         float* __restrict__ g_mean,
+                         float2* __restrict__ h_ego,
+                         float* __restrict__ g_cvar,
+                         float* __restrict__ g_drcvar, int n, int slice,
+                         int k, float inv_n, float an, float r_combined,
+                         float delta, float eps_over_alpha) {
+  extern __shared__ float xs[];
+  __shared__ float red_f[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ int hist[2 * kThreads];
+  __shared__ int sel[2];
+  __shared__ float2 mean_slot;
+  __shared__ float tail_slot;
+  __shared__ int size_slot;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int row = blockIdx.x / cluster.num_blocks();
+  const int lo = static_cast<int>(rank) * slice;
+  const int m = min(slice, n - lo);
+  const RowStats r = row_projections(
+      samples + static_cast<size_t>(row) * n + lo, ego[row], m, inv_n, xs,
+      red_f, ClusterRowTotal{&mean_slot});
+
+  const float v =
+      radix_select(xs, m, k, ClusterHists{hist}, red_i, sel, nullptr);
+
+  float tail = 0.f;
+  int cnt = 0;
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    const float x = xs[i];
+    if (x >= v) {
+      tail += x;
+      ++cnt;
+    }
+  }
+  const float block_tail = block_sum(tail, red_f);
+  const int block_size = block_sum(cnt, red_i);
+  if (threadIdx.x == 0) {
+    tail_slot = block_tail;
+    size_slot = block_size;
+  }
+  const float sum_g = cluster_sum(&tail_slot);
+  const int size_g = cluster_sum(&size_slot);
+
+  if (rank == 0 && threadIdx.x == 0)
+    write_row<kAllMetrics>(h_mean, g_mean, h_ego, g_cvar, g_drcvar, row, an,
+                           r_combined, delta, eps_over_alpha, r.hx, r.hy,
+                           r.mx, r.my, sum_g, size_g, v);
+  cluster.sync();  // no block leaves while another reads its slots
+}
+
 // The select alone on given rows [B, N] of floats: checks the select bit
 // for bit against a sort-based k-th value on identical inputs.
 template <int kVpl>
@@ -241,6 +325,74 @@ kth_largest_block_kernel(const float* __restrict__ x, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
+__global__ void __launch_bounds__(kThreads)
+kth_largest_cluster_kernel(const float* __restrict__ x,
+                           float* __restrict__ out, int n, int slice,
+                           int k) {
+  extern __shared__ float xs[];
+  __shared__ int red_i[kWarps];
+  __shared__ int hist[2 * kThreads];
+  __shared__ int sel[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int row = blockIdx.x / cluster.num_blocks();
+  const int lo = static_cast<int>(rank) * slice;
+  const int m = min(slice, n - lo);
+  const float* r = x + static_cast<size_t>(row) * n + lo;
+  for (int i = threadIdx.x; i < m; i += kThreads) xs[i] = r[i];
+  __syncthreads();
+  const float v =
+      radix_select(xs, m, k, ClusterHists{hist}, red_i, sel, nullptr);
+  if (rank == 0 && threadIdx.x == 0) out[row] = v;
+  cluster.sync();  // no block leaves while another reads its counters
+}
+
+// The samples a block of a c-block cluster holds of a row of n.
+inline int cluster_slice(int n, int c) { return (n + c - 1) / c; }
+
+// Whether the plan's blocks a row fit rows of n samples: 1 on the warp
+// and block paths, ceil(n / kBlockMaxN) (2 ... 8) on the cluster path.
+inline bool cluster_plan_fits(int values_per_lane, int cluster, int n) {
+  if (values_per_lane != 0) return cluster == 1;
+  return cluster == (n + kBlockMaxN - 1) / kBlockMaxN &&
+         cluster <= kMaxClusterBlocks;
+}
+
+// Launches `kernel` as `rows` clusters of c kThreads-thread blocks with
+// `smem` bytes of dynamic shared memory each.  `checked` (one entry a
+// cluster size, kept by the caller for its kernel) records the largest
+// shared memory at which a cluster was found to fit; a launch above it
+// asks cudaOccupancyMaxActiveClusters first and is refused where no
+// cluster fits.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), size_t* checked,
+                            int rows, int c, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaError_t err = reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(c);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(rows) * c);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  if (smem > checked[c]) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    checked[c] = smem;
+  }
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int kVpl, bool kAllMetrics>
 int launch_warp(const float2* samples, const float2* ego,
                 const RowOutputs& out, int rows, const Plan& plan,
@@ -258,10 +410,22 @@ int launch_warp(const float2* samples, const float2* ego,
 template <bool kAllMetrics>
 int launch_halfspace(const void* samples_, const void* ego_,
                      const RowOutputs& out, int rows, const Plan& plan,
-                     const RowArgs& a, void* stream_) {
+                     int cluster, const RowArgs& a, void* stream_) {
   const float2* samples = static_cast<const float2*>(samples_);
   const float2* ego = static_cast<const float2*>(ego_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!cluster_plan_fits(plan.values_per_lane, cluster, a.n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster > 1) {   // the cluster path
+    const int slice = cluster_slice(a.n, cluster);
+    static size_t checked[kMaxClusterBlocks + 1] = {};
+    return static_cast<int>(launch_clusters(
+        halfspace_cluster_kernel<kAllMetrics>, checked, rows, cluster,
+        static_cast<size_t>(slice) * sizeof(float), stream, samples, ego,
+        out.h_mean, out.g_mean, out.h_ego, out.g_cvar, out.g_drcvar, a.n,
+        slice, a.k, a.inv_n, a.an, a.r_combined, a.delta,
+        a.eps_over_alpha));
+  }
   if (plan.values_per_lane == 0) {   // the block path
     const size_t smem = static_cast<size_t>(a.n) * sizeof(float);
     const cudaError_t err =
@@ -295,9 +459,9 @@ int launch_kth_warp(const float* x, float* out, int rows, int n, int k,
 extern "C" int drcvar_all_metrics_halfspaces(
     const void* samples, const void* ego, void* h_mean, void* g_mean,
     void* h_ego, void* g_cvar, void* g_drcvar, int rows, int n, int k,
-    int values_per_lane, int rows_per_block, int load_bytes, float inv_n,
-    float an, float r_combined, float delta, float eps_over_alpha,
-    void* stream) {
+    int values_per_lane, int rows_per_block, int load_bytes, int cluster,
+    float inv_n, float an, float r_combined, float delta,
+    float eps_over_alpha, void* stream) {
   const RowOutputs out = {static_cast<float2*>(h_mean),
                           static_cast<float*>(g_mean),
                           static_cast<float2*>(h_ego),
@@ -305,6 +469,7 @@ extern "C" int drcvar_all_metrics_halfspaces(
                           static_cast<float*>(g_drcvar)};
   return launch_halfspace<true>(
       samples, ego, out, rows, {values_per_lane, rows_per_block, load_bytes},
+      cluster,
       {n, k, inv_n, an, r_combined, delta, eps_over_alpha}, stream);
 }
 
@@ -312,21 +477,34 @@ extern "C" int drcvar_fused_halfspace(const void* samples, const void* ego,
                                       void* h, void* g_tilde, int rows, int n,
                                       int k, int values_per_lane,
                                       int rows_per_block, int load_bytes,
-                                      float inv_n, float an, float delta,
-                                      float eps_over_alpha, void* stream) {
+                                      int cluster, float inv_n, float an,
+                                      float delta, float eps_over_alpha,
+                                      void* stream) {
   const RowOutputs out = {nullptr, nullptr, static_cast<float2*>(h), nullptr,
                           static_cast<float*>(g_tilde)};
   return launch_halfspace<false>(
       samples, ego, out, rows, {values_per_lane, rows_per_block, load_bytes},
+      cluster,
       {n, k, inv_n, an, 0.f, delta, eps_over_alpha}, stream);
 }
 
 extern "C" int drcvar_kth_largest(const void* x_, void* out_, int rows, int n,
                                   int k, int values_per_lane,
-                                  int rows_per_block, void* stream_) {
+                                  int rows_per_block, int cluster,
+                                  void* stream_) {
   const float* x = static_cast<const float*>(x_);
   float* out = static_cast<float*>(out_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!cluster_plan_fits(values_per_lane, cluster, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster > 1) {   // the cluster path
+    const int slice = cluster_slice(n, cluster);
+    static size_t checked[kMaxClusterBlocks + 1] = {};
+    return static_cast<int>(launch_clusters(
+        kth_largest_cluster_kernel, checked, rows, cluster,
+        static_cast<size_t>(slice) * sizeof(float), stream, x, out, n, slice,
+        k));
+  }
   if (values_per_lane == 0) {   // the block path
     const size_t smem = static_cast<size_t>(n) * sizeof(float);
     const cudaError_t err = reserve_smem(kth_largest_block_kernel, smem);

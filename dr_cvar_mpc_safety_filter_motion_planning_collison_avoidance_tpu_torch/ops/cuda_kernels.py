@@ -6,16 +6,21 @@ Port of the JAX package's ops/pallas_kernels.py: `_all_metrics_kernel`
 `fused_drcvar_halfspace`) keeps its name.  The kernel source is
 `csrc/halfspace_kernels.cu`; its header says what bounds the kernels on
 an H100 (bytes; latency held an earlier block-a-row design at a quarter
-of that) and what the design does about it: one warp a row with the
-samples in registers for N <= 1024, one block a row above.
+of that) and what the design does about it, on three paths by the row's
+length N: one warp a row with the samples in registers for N <= 1024
+(WARP_MAX_N); one block a row with its projections in shared memory up
+to 49,152 (BLOCK_MAX_N); and up to 393,216 (MAX_N_SAMPLES) one
+thread-block cluster of c = ceil(N / 49,152) blocks a row, each holding
+a slice, the row's sums and the select's histograms added over the
+cluster through distributed shared memory.  Longer rows have no kernel.
 
 Each wrapper dispatches on the samples' device: on the CPU it runs the
 plain PyTorch form (the composed closed forms of ops/halfspace.py, any
 float dtype); on a CUDA tensor it launches the kernel (float32 only) or
 raises.  No fallback on the card.  Which kernel a (B, N, alignment)
-takes, with how many values a lane, rows a block and bytes of shared
-memory, is decided by `halfspace_plan`, a pure function; the C entry
-points check the plan against what the kernels take.
+takes, with how many values a lane, rows a block, blocks a row and bytes
+of shared memory, is decided by `halfspace_plan`, a pure function; the C
+entry points check the plan against what the kernels take.
 """
 
 from __future__ import annotations
@@ -33,7 +38,13 @@ from .halfspace import (Halfspace, cvar_halfspace, dr_cvar_halfspace,
 # The block path keeps one float32 of shared memory per sample (the row's
 # projections); the block's own bookkeeping takes ~1 KB of the 227 KB an
 # H100 block may use.
-MAX_N_SAMPLES = 49152
+BLOCK_MAX_N = 49152
+# The cluster path spreads a longer row over the blocks of one
+# thread-block cluster, each holding a slice of at most BLOCK_MAX_N
+# projections (and ~2.3 KB of bookkeeping); 8 blocks is the portable
+# cluster size, so the kernels take rows of up to 8 x 49,152 samples.
+MAX_CLUSTER_BLOCKS = 8
+MAX_N_SAMPLES = MAX_CLUSTER_BLOCKS * BLOCK_MAX_N
 # The warp path: a lane holds 2 ... 32 values in registers, so a warp
 # takes rows of up to 1024; four warps (rows) a block, each with 256
 # int32 histogram counters of shared memory.
@@ -46,12 +57,20 @@ BLOCK_THREADS = 256
 class HalfspacePlan(NamedTuple):
     """How the halfspace kernels (and the select alone) run B rows of N."""
 
-    entry: str             # "warp": a warp a row; "block": a block a row
-    values_per_lane: int   # registers of samples a lane; 0 on the block path
+    entry: str             # "warp": a warp a row; "block": a block a
+                           # row; "cluster": a cluster of blocks a row
+    values_per_lane: int   # registers of samples a lane; 0 on the others
     rows_per_block: int
     threads: int           # threads a block
     smem_bytes: int        # dynamic shared memory a block
     load_bytes: int        # width of a sample load: 16 (two samples) or 8
+    cluster: int = 1       # blocks a row: 2 ... 8 on the cluster path
+
+    @property
+    def slice(self) -> int:
+        """Samples a block holds in shared memory (the last block of a
+        cluster may hold fewer); 0 on the warp path."""
+        return 0 if self.entry == "warp" else self.smem_bytes // 4
 
 
 def halfspace_plan(B: int, N: int, aligned16: bool) -> HalfspacePlan:
@@ -61,13 +80,19 @@ def halfspace_plan(B: int, N: int, aligned16: bool) -> HalfspacePlan:
     Rows of at most 1024 samples go to the warp path with the fewest
     values a lane that hold them; 16-byte loads need every row's base
     aligned, that is an aligned start and an even N, else the loads are
-    8 bytes (one sample).  Longer rows go to the block path.
+    8 bytes (one sample).  Rows of up to BLOCK_MAX_N go to the block
+    path, longer ones to the cluster path: c = ceil(N / BLOCK_MAX_N)
+    blocks a row, each holding ceil(N / c) samples.
     """
     if B < 0:
         raise ValueError(f"halfspace_plan: B >= 0, got {B}")
     if not 1 <= N <= MAX_N_SAMPLES:
         raise ValueError(f"halfspace_plan: 1 <= N <= {MAX_N_SAMPLES} samples "
                          f"per row, got {N}")
+    if N > BLOCK_MAX_N:
+        blocks = -(-N // BLOCK_MAX_N)
+        return HalfspacePlan("cluster", 0, 1, BLOCK_THREADS,
+                             4 * -(-N // blocks), 8, blocks)
     if N > WARP_MAX_N:
         return HalfspacePlan("block", 0, 1, BLOCK_THREADS, 4 * N, 8)
     values = next(v for v in WARP_VALUES_PER_LANE if 32 * v >= N)
@@ -203,8 +228,9 @@ def all_metrics_halfspaces(samples, ego, alpha: float, delta: float,
     five outputs are views of one buffer.
 
     With the recorder on, the rows are counted under the path that takes
-    them: `halfspace.rows_warp` / `halfspace.rows_block` (the plan's
-    entry) on a CUDA tensor, `halfspace.rows_plain` on the CPU.
+    them: `halfspace.rows_warp` / `halfspace.rows_block` /
+    `halfspace.rows_cluster` (the plan's entry) on a CUDA tensor,
+    `halfspace.rows_plain` on the CPU.
     """
     if samples.device.type == "cpu":
         timing.count("halfspace.rows_plain", samples.shape[0])
@@ -225,8 +251,8 @@ def all_metrics_halfspaces(samples, ego, alpha: float, delta: float,
                   samples.data_ptr(), ego.data_ptr(),
                   *(t.data_ptr() for t in out), B, N, cvar_k(N, alpha),
                   plan.values_per_lane, plan.rows_per_block, plan.load_bytes,
-                  1.0 / N, alpha * N, robot_radius + obstacle_radius, delta,
-                  epsilon / alpha)
+                  plan.cluster, 1.0 / N, alpha * N,
+                  robot_radius + obstacle_radius, delta, epsilon / alpha)
     all_metrics_halfspaces.launches += 1
     return out
 
@@ -263,7 +289,7 @@ def fused_drcvar_halfspace(samples, ego, alpha: float, delta: float,
                   samples.data_ptr(), ego.data_ptr(), out.h.data_ptr(),
                   out.g_tilde.data_ptr(), B, N, cvar_k(N, alpha),
                   plan.values_per_lane, plan.rows_per_block, plan.load_bytes,
-                  1.0 / N, alpha * N, delta, epsilon / alpha)
+                  plan.cluster, 1.0 / N, alpha * N, delta, epsilon / alpha)
     fused_drcvar_halfspace.launches += 1
     return out
 
@@ -293,7 +319,7 @@ def kth_largest(x, k: int):
     plan = halfspace_plan(B, N, False)
     _build.launch("drcvar_kth_largest", x.device, x.data_ptr(),
                   out.data_ptr(), B, N, k, plan.values_per_lane,
-                  plan.rows_per_block)
+                  plan.rows_per_block, plan.cluster)
     kth_largest.launches += 1
     return out
 

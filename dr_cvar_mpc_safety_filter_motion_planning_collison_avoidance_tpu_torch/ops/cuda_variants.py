@@ -27,9 +27,10 @@ import torch
 
 from ..core.risk import cvar_k
 from . import _build
-from .cuda_kernels import (BLOCK_THREADS, HalfspacePlan, _check_rows, _plan_rows,
-                           float_keys, fused_drcvar_halfspace,
-                           halfspace_plan, radix_select_plain)
+from .cuda_kernels import (BLOCK_MAX_N, BLOCK_THREADS, HalfspacePlan,
+                           _check_rows, _plan_rows, float_keys,
+                           fused_drcvar_halfspace, halfspace_plan,
+                           radix_select_plain)
 from .halfspace import Halfspace, dr_cvar_halfspace
 
 # The constants `kbench.fused` hard-codes: alpha, delta, epsilon, r~.
@@ -42,6 +43,17 @@ _CODES = {"nosel": (0, 0), "prod_nosel": (1, 0), "r3": (2, 22),
 _MINIMAL_PLANES = 5
 # `minimal_planes` is a block a row at any N.
 BLOCK_PLAN = HalfspacePlan("block", 0, 1, BLOCK_THREADS, 0, 8)
+
+
+def _plan_variant_rows(what: str, samples, ego):
+    """`_plan_rows` for the variants, which have the production kernel's
+    warp and block paths but no cluster path: rows of at most
+    BLOCK_MAX_N samples."""
+    plan, N = _plan_rows(what, samples, ego)
+    if plan.entry == "cluster":
+        raise ValueError(f"{what}: 1 <= N <= {BLOCK_MAX_N} samples per row "
+                         f"(the variants have no cluster path), got {N}")
+    return plan, N
 
 
 def _select_bisect(x, k: int, alpha: float, rounds: int, early_exit: bool):
@@ -178,7 +190,7 @@ def drcvar_variant(samples, ego, variant: str) -> Halfspace:
     if samples.device.type == "cpu":
         return drcvar_variant_plain(samples, ego, variant)
     code, rounds = _CODES[variant]
-    plan, N = _plan_rows("drcvar_variant", samples, ego)
+    plan, N = _plan_variant_rows("drcvar_variant", samples, ego)
     out = _launch_variant(samples, ego, code, rounds, cvar_k(N, ALPHA), plan)
     drcvar_variant.launches += 1
     return out
@@ -304,7 +316,7 @@ def select_rounds(samples, ego, alpha: float):
     """
     if samples.device.type == "cpu":
         return select_rounds_plain(samples, ego, alpha)
-    plan, N = _plan_rows("select_rounds", samples, ego)
+    plan, N = _plan_variant_rows("select_rounds", samples, ego)
     B = samples.shape[0]
     out = torch.empty((B,), dtype=torch.int32, device=samples.device)
     if B == 0:

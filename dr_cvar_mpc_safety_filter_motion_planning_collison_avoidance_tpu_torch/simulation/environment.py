@@ -97,9 +97,11 @@ def halfspace_rows(env: Environment, obstacle_samples, x_ref):
 
 def use_halfspace_kernel(dtype, n_samples: int) -> bool:
     """Whether rows of `n_samples` samples go to the all-metrics kernel:
-    what it takes (float32, at most MAX_N_SAMPLES samples a row).  Other
-    rows (float64, longer rows) take the composed closed forms.  The
-    choice never looks at the device or at whether a launch succeeded."""
+    what it takes, float32 rows of at most MAX_N_SAMPLES = 393,216
+    samples, on one of its three paths (a warp a row up to 1024, a block
+    up to 49,152, a cluster of 2 ... 8 blocks above).  Other rows
+    (float64, longer rows) take the composed closed forms.  The choice
+    never looks at the device or at whether a launch succeeded."""
     return dtype == torch.float32 and n_samples <= MAX_N_SAMPLES
 
 

@@ -267,7 +267,8 @@ def test_misaligned_view_takes_the_8_byte_loads(cuda, B, N):
 def test_entry_points_refuse_a_plan_the_kernels_do_not_take(cuda):
     """The C entry points hold the plan against the rows: too few values
     a lane, 16-byte loads on an odd N or a misaligned start, a block of
-    more than 8 rows."""
+    more than 8 rows, more than one block a row short of the cluster
+    path."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu_torch.ops import (
         _build)
     x, ego = _rows(cuda, 4, 100, 0)
@@ -276,11 +277,11 @@ def test_entry_points_refuse_a_plan_the_kernels_do_not_take(cuda):
     lib = _build.load().lib
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(samples, n, values, rows, load):
+    def call(samples, n, values, rows, load, cluster=1):
         return lib.drcvar_all_metrics_halfspaces(
             samples.data_ptr(), ego.data_ptr(), *(t.data_ptr() for t in out),
-            4, n, 20, values, rows, load, 1.0 / n, 0.2 * n, 0.6, 0.1, 0.75,
-            stream)
+            4, n, 20, values, rows, load, cluster, 1.0 / n, 0.2 * n, 0.6,
+            0.1, 0.75, stream)
 
     assert call(x, 100, 4, 4, 16) == 0
     assert call(x, 100, 2, 4, 16) != 0          # 64 values hold no 100
@@ -289,6 +290,9 @@ def test_entry_points_refuse_a_plan_the_kernels_do_not_take(cuda):
     assert call(x, 100, 4, 4, 4) != 0           # no such load
     assert call(odd, 99, 4, 4, 16) != 0         # odd N: rows not aligned
     assert call(odd, 99, 4, 4, 8) == 0
+    assert call(x, 100, 4, 4, 16, 2) != 0       # a warp a row, not 2 blocks
+    assert call(x, 100, 0, 1, 8, 2) != 0        # a block a row, not 2
+    assert call(x, 100, 0, 1, 8) == 0
     torch.cuda.synchronize()
 
 
@@ -505,11 +509,11 @@ def test_float64_runs_on_the_card_without_the_kernels(cuda):
 def test_wrappers_still_refuse_what_the_call_sites_keep_away(cuda):
     """The dispatch lives at the call sites; a wrapper handed a CUDA
     tensor it cannot take raises as before."""
-    with pytest.raises(ValueError, match="49152"):
+    with pytest.raises(ValueError, match="393216"):
         ck.all_metrics_halfspaces(
             torch.zeros(1, ck.MAX_N_SAMPLES + 1, 2, device=cuda),
             torch.zeros(1, 2, device=cuda), *ARGS)
-    with pytest.raises(ValueError, match="49152"):
+    with pytest.raises(ValueError, match="393216"):
         ck.fused_drcvar_halfspace(
             torch.zeros(1, ck.MAX_N_SAMPLES + 1, 2, device=cuda),
             torch.zeros(1, 2, device=cuda), *ARGS)

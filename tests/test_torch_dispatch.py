@@ -47,12 +47,12 @@ def test_use_linalg_kernels(dtype, n, k, want):
 
 @pytest.mark.parametrize("dtype,n,want", [
     (F32, 1, True), (F32, 1000, True), (F32, 49152, True),
-    (F32, 49153, False), (F64, 1000, False), (F64, 49153, False),
-    (torch.float16, 20, False),
+    (F32, 49153, True), (F32, 393216, True), (F32, 393217, False),
+    (F64, 1000, False), (F64, 49153, False), (torch.float16, 20, False),
 ])
 def test_use_halfspace_kernel(dtype, n, want):
     assert tenv.use_halfspace_kernel(dtype, n) is want
-    assert ck.MAX_N_SAMPLES == 49152
+    assert (ck.BLOCK_MAX_N, ck.MAX_N_SAMPLES) == (49152, 393216)
 
 
 def test_the_selectors_agree_with_what_the_wrappers_take():
@@ -80,10 +80,10 @@ def test_the_selectors_agree_with_what_the_wrappers_take():
             for k in (1, 65, 67, 256, 257):
                 assert solve_ok(dtype, n, k) is \
                     qp.use_linalg_kernels(dtype, n, k)
-    for n in (1, 1024, 1025, 49152):
+    for n in (1, 1024, 1025, 49152, 49153, 393216):
         ck.halfspace_plan(4, n, True)
     with pytest.raises(ValueError):
-        ck.halfspace_plan(4, 49153, True)
+        ck.halfspace_plan(4, 393217, True)
 
 
 @pytest.fixture
@@ -209,8 +209,9 @@ def test_float32_at_supported_shapes_takes_every_kernel_wrapper(
 
 
 def test_rows_longer_than_the_kernel_takes(halfspace_calls):
-    """N = 49,153 samples a row (one obstacle, T + 1 = 6 steps) in
-    float32 and float64: the closed forms, equal to the JAX pipeline's."""
+    """N = 393,217 samples a row, one more than the cluster path takes
+    (one obstacle, T + 1 = 6 steps), in float32 and float64: the closed
+    forms, equal to the JAX pipeline's."""
     scenario = pt.config.get_scenario_config("head_on")
     params = _small(num_samples=ck.MAX_N_SAMPLES + 1, sim_time=1.0)
     ours, theirs = _run_both(params, scenario)
@@ -218,8 +219,8 @@ def test_rows_longer_than_the_kernel_takes(halfspace_calls):
     ours32, theirs32 = _run_both(params, scenario, F32)
     _hold_to_jax(ours32, theirs32, u_tol=1e-4, hs_tol=2e-5)
     assert halfspace_calls == [
-        ("all_metrics_halfspaces_plain", F64, 49153),
-        ("all_metrics_halfspaces_plain", F32, 49153)]
+        ("all_metrics_halfspaces_plain", F64, 393217),
+        ("all_metrics_halfspaces_plain", F32, 393217)]
 
 
 @pytest.mark.parametrize("horizon,plain_sizes", [(31, {66}), (33, {66, 70})])

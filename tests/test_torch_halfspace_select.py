@@ -120,7 +120,7 @@ def test_plan_warp_path(B, N, values):
         assert plan.load_bytes == (16 if aligned and N % 2 == 0 else 8)
 
 
-@pytest.mark.parametrize("N", [1025, 1026, 1500, 4096, ck.MAX_N_SAMPLES])
+@pytest.mark.parametrize("N", [1025, 1026, 1500, 4096, ck.BLOCK_MAX_N])
 @pytest.mark.parametrize("B", [0, 1, 7, 19968])
 def test_plan_block_path(B, N):
     for aligned in (True, False):
